@@ -1,0 +1,201 @@
+"""Parity of the port's k-way merges and merge sort with the JAX reference.
+
+Positions, merges, sorts and permutations are integer results or
+permutations of the inputs: bit for bit, no tolerance.
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from _engine_cases import kway_cases
+from repro.core import kway as ref_kway
+from repro.core import mergesort as ref_ms
+from repro_torch.core import kway, mergesort
+
+CASE_NAMES = ("dup_heavy", "pm_inf", "dtype_max", "pre_sorted", "ragged_zero")
+
+# The reference's eager functions run op by op; the tests call them jitted.
+ref_kway_positions = jax.jit(ref_kway.kway_positions)
+ref_merge_sort = ref_ms.merge_sort_jit
+ref_sort_key_val = ref_ms.sort_key_val_jit
+ref_merge_argsort = jax.jit(ref_ms.merge_argsort, static_argnames="fanout")
+ref_merge_kway_ranked = jax.jit(ref_kway.merge_kway_ranked,
+                                static_argnames="out_len")
+
+
+def _case(k, name):
+    return {n: (runs, lengths) for n, runs, lengths in kway_cases(k)}[name]
+
+
+def _oracle_positions(runs, lengths):
+    """Merged rank of every real element: the stable (value, run, offset)
+    order, by brute force."""
+    k, w = runs.shape
+    real = np.arange(w)[None, :] < lengths[:, None]
+    run_ids = np.broadcast_to(np.arange(k)[:, None], (k, w))[real]
+    offs = np.broadcast_to(np.arange(w)[None, :], (k, w))[real]
+    order = np.lexsort((offs, run_ids, runs[real]))
+    pos = np.empty(len(order), np.int64)
+    pos[order] = np.arange(len(order))
+    return pos, real
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("name", CASE_NAMES)
+@pytest.mark.parametrize("k", [2, 4, 5])
+def test_kway_positions_match_oracle(k, name, ragged):
+    runs, lengths = _case(k, name)
+    if not ragged:
+        lengths = np.full(k, runs.shape[1], np.int32)
+    t_len = torch.from_numpy(lengths) if ragged else None
+    got = kway.kway_positions(torch.from_numpy(runs), t_len).numpy()
+    want, real = _oracle_positions(runs, lengths)
+    np.testing.assert_array_equal(got[real], want)
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("name", CASE_NAMES)
+def test_kway_positions_match_reference(name, ragged):
+    runs, lengths = _case(4, name)
+    t_len = torch.from_numpy(lengths) if ragged else None
+    j_len = jnp.asarray(lengths) if ragged else None
+    got = kway.kway_positions(torch.from_numpy(runs), t_len).numpy()
+    want = np.asarray(ref_kway_positions(jnp.asarray(runs), j_len))
+    if ragged:  # positions of padded elements are meaningless
+        real = np.arange(runs.shape[1])[None, :] < lengths[:, None]
+        got, want = got[real], want[real]
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("form", ["keys", "payload", "lengths", "out_len"])
+@pytest.mark.parametrize("name", CASE_NAMES)
+def test_merge_kway_ranked_matches_reference(name, form):
+    runs, lengths = _case(4, name)
+    k, w = runs.shape
+    vals = np.arange(k * w, dtype=np.int32).reshape(k, w)
+    kw_t, kw_j = {}, {}
+    if form in ("payload", "lengths", "out_len"):
+        kw_t["vals"], kw_j["vals"] = torch.from_numpy(vals), jnp.asarray(vals)
+    if form in ("lengths", "out_len"):
+        kw_t["lengths"] = torch.from_numpy(lengths)
+        kw_j["lengths"] = jnp.asarray(lengths)
+    if form == "out_len":
+        kw_t["out_len"] = kw_j["out_len"] = int(lengths.sum()) // 2 + 3
+    got = kway.merge_kway_ranked(torch.from_numpy(runs), **kw_t)
+    want = ref_merge_kway_ranked(jnp.asarray(runs), **kw_j)
+    if form == "keys":
+        got, want = (got,), (want,)
+    for g, wnt in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(wnt))
+
+
+@pytest.mark.parametrize("p", [1, 5])
+@pytest.mark.parametrize("k", [3, 8])
+def test_merge_kway_partitioned_matches_reference(k, p):
+    rng = np.random.default_rng(k * 10 + p)
+    runs = np.sort(rng.integers(0, 5, (k, 13)), axis=1).astype(np.int32)
+    got = kway.merge_kway(torch.from_numpy(runs), p=p).numpy()
+    want = np.asarray(ref_kway.merge_kway(jnp.asarray(runs), p=p))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_co_rank_kway_batch_sums_to_rank():
+    runs, lengths = _case(5, "ragged_zero")
+    ranks = torch.arange(int(lengths.sum()) + 1, dtype=torch.int32)
+    cuts = kway.co_rank_kway_batch(ranks, torch.from_numpy(runs),
+                                   torch.from_numpy(lengths))
+    assert cuts.dtype == torch.int32
+    np.testing.assert_array_equal(cuts.sum(1).numpy(), ranks.numpy())
+
+
+@pytest.mark.parametrize("fanout", [2, 4, 16])
+@pytest.mark.parametrize("n,universe", [(1, 5), (2, 5), (37, 4), (300, 1000),
+                                        (1024, 7), (1500, 1 << 30)])
+def test_merge_sort_family_matches_numpy(n, universe, fanout):
+    rng = np.random.default_rng(n + fanout)
+    x = rng.integers(-universe, universe, n).astype(np.int32)
+    v = rng.integers(0, 1 << 20, n).astype(np.int32)
+    tx = torch.from_numpy(x)
+    order = np.argsort(x, kind="stable")
+    np.testing.assert_array_equal(mergesort.merge_sort(tx, fanout).numpy(),
+                                  x[order])
+    np.testing.assert_array_equal(mergesort.merge_argsort(tx, fanout).numpy(),
+                                  order)
+    sk, sv = mergesort.sort_key_val(tx, torch.from_numpy(v), fanout)
+    np.testing.assert_array_equal(sk.numpy(), x[order])
+    np.testing.assert_array_equal(sv.numpy(), v[order])
+
+
+@pytest.mark.parametrize("fanout", [2, 4, 16])
+def test_merge_sort_family_matches_reference(fanout):
+    rng = np.random.default_rng(fanout)
+    x = rng.integers(-7, 7, 24).astype(np.int32)
+    v = rng.integers(0, 1 << 20, 24).astype(np.int32)
+    tx, jx = torch.from_numpy(x), jnp.asarray(x)
+    np.testing.assert_array_equal(
+        mergesort.merge_sort(tx, fanout).numpy(),
+        np.asarray(ref_merge_sort(jx, fanout=fanout)))
+    np.testing.assert_array_equal(
+        mergesort.merge_argsort(tx, fanout).numpy(),
+        np.asarray(ref_merge_argsort(jx, fanout=fanout)))
+    sk, sv = mergesort.sort_key_val(tx, torch.from_numpy(v), fanout)
+    rk, rv = ref_sort_key_val(jx, jnp.asarray(v), fanout=fanout)
+    np.testing.assert_array_equal(sk.numpy(), np.asarray(rk))
+    np.testing.assert_array_equal(sv.numpy(), np.asarray(rv))
+
+
+def test_merge_sort_float_extremes_match_reference():
+    rng = np.random.default_rng(2)
+    base = np.array([np.inf, -np.inf, 0.0, -0.0, 1.5, -1.5,
+                     np.finfo(np.float32).max], np.float32)
+    x = base[rng.integers(0, len(base), 100)]
+    got = mergesort.merge_argsort(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(
+        got, np.asarray(ref_merge_argsort(jnp.asarray(x))))
+    sorted_bits = mergesort.merge_sort(torch.from_numpy(x)).numpy().view(np.int32)
+    np.testing.assert_array_equal(sorted_bits, x[got].view(np.int32))
+
+
+def test_merge_runs_ranked_batched_matches_reference():
+    rng = np.random.default_rng(4)
+    keys = np.sort(rng.integers(0, 6, (3, 4, 8)), axis=2).astype(np.int32)
+    vals = rng.integers(0, 100, (3, 4, 8)).astype(np.int32)
+    gk, gv = mergesort.merge_runs_ranked(torch.from_numpy(keys),
+                                         torch.from_numpy(vals))
+    wk, wv = jax.jit(ref_ms.merge_runs_ranked)(jnp.asarray(keys),
+                                               jnp.asarray(vals))
+    np.testing.assert_array_equal(gk.numpy(), np.asarray(wk))
+    np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32, np.int16,
+                                   np.uint8])
+def test_sentinel_max_matches_reference(dtype):
+    got = mergesort.sentinel_max(np.dtype(dtype))
+    want = np.asarray(ref_ms.sentinel_max(np.dtype(dtype)))
+    assert got.numpy().dtype == want.dtype
+    assert got.numpy().tobytes() == want.tobytes()
+    torch_dtype = torch.from_numpy(np.empty(0, dtype)).dtype
+    assert mergesort.sentinel_max(torch_dtype).item() == got.item()
+
+
+def test_sentinel_max_bfloat16_is_inf():
+    assert mergesort.sentinel_max(torch.bfloat16).item() == float("inf")
+
+
+@pytest.mark.parametrize("fanout", [3, 1, -2, 6])
+def test_check_fanout_errors_match_reference(fanout):
+    with pytest.raises(ValueError) as got:
+        mergesort._check_fanout(fanout)
+    with pytest.raises(ValueError) as want:
+        ref_ms._check_fanout(fanout)
+    assert str(got.value) == str(want.value)
+
+
+def test_check_fanout_default():
+    assert mergesort._check_fanout(0) == ref_ms._check_fanout(0)
+    assert mergesort.DEFAULT_FANOUT == ref_ms.DEFAULT_FANOUT
+    assert mergesort._check_fanout(16) == 16
