@@ -14,9 +14,12 @@ full data size through the entry points a user calls:
                    keys and m = n = 2^26 bfloat16 keys (``merge_tile``);
 3. merge_kway    — ``ops.stable_merge_kway`` of (4, 2^24) and (16, 2^23)
                    int32 and float32 runs (``merge_kway_tile``);
-4. merge_window  — ``ops.merge_window`` of an (8, 2^22) window with an int32
-                   payload, ragged lengths (one row empty) and real
-                   INT32_MAX keys among the INT32_MAX padding;
+4. merge_window  — ``ops.merge_window`` of an (8, 2^22) window with ragged
+                   lengths (one row empty) and real dtype-max keys among the
+                   dtype-max padding: int32 keys with an int32 payload, then
+                   int64 keys with an int64 payload (the window
+                   ``external_sort`` and ``external_argsort`` past 2^31 keys
+                   launch);
 5. external      — ``external_argsort`` of 2^27 duplicate-heavy int32 keys
                    (chunk 2^24, fanout 4, window 2^22: 8 runs, two merge
                    passes, 64 windows through ``merge_kway_tile``), then
@@ -34,6 +37,11 @@ warm-up.  ``bound_ms`` is the larger of the bytes the function must move
 (each input read once, each output written once) over the H100's
 3.35 TB/s, and the comparisons a merge needs (``log2(k)`` per element)
 over its 67 T/s of 32-bit operations outside the tensor cores.
+
+Each timed case's line also shows ``pr11_ms``, the time of the kernels'
+first design (tiles 1024 and 2048, one block per tile) for the same case,
+read from the "PR 11 ms" column of ``PERF.md``'s per-shape table where it
+has one; it was not measured by this run and stays out of the JSON lines.
 
 Output: one line per phase, the card's name and power limit, one
 ``{"kernels": [...]}`` JSON line, and last
@@ -67,6 +75,29 @@ KWAY_TPU = "src/repro/kernels/merge.py:235"
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def recorded_ms(column: str) -> dict:
+    """{(kernel, case): ms} from the ``column`` of PERF.md's tables whose
+    first two cells are a kernel's name and a case as this script names
+    it; empty when there is no such file or column."""
+    try:
+        lines = (ROOT / "PERF.md").read_text().splitlines()
+    except OSError:
+        return {}
+    found, col = {}, None
+    for line in lines:
+        cells = [c.strip().strip("`") for c in line.strip().strip("|").split("|")]
+        if not line.startswith("|"):
+            col = None
+        elif column in cells:
+            col = cells.index(column)
+        elif col is not None and col < len(cells):
+            try:
+                found[(cells[0], cells[1])] = float(cells[col])
+            except ValueError:
+                pass
+    return found
 
 
 def card_line() -> str:
@@ -104,6 +135,7 @@ class Smoke:
         self.cases = {"merge_tile": [], "merge_kway_tile": []}
         self.launches = {"merge_tile": 0, "merge_kway_tile": 0}
         self.failed = []
+        self.pr11_ms = recorded_ms("PR 11 ms")
 
     # -- helpers ------------------------------------------------------------
 
@@ -195,6 +227,7 @@ class Smoke:
         }
         self.cases[kernel].append(row)
         log(f"  {kernel} {case}: mismatches={mismatches} ms={ms:.4f} "
+            f"pr11_ms={self.pr11_ms.get((kernel, case), 'n/a')} "
             f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
             f"bound_ms={bound_ms:.4f} "
             + " ".join(f"{k}={v}" for k, v in extra.items()))
@@ -296,32 +329,41 @@ class Smoke:
                 del runs, out, plain, cb
 
     def phase_merge_window(self) -> None:
+        torch = self.torch
+        log(f"phase merge_window: ops.merge_window -> merge_kway_tile "
+            f"(k 8, tile {self.km.KWAY_TILE})")
+        self.window_case(torch.int32, torch.int32, 1 << 20)
+        # Keys above the int32 range, as the external sort's int64 keys.
+        self.window_case(torch.int64, torch.int64, 1 << 40)
+
+    def window_case(self, key_dtype, val_dtype, spread: int) -> None:
+        """One (8, 2^22) window: ragged lengths summing to the window with
+        row 3 empty, keys in [0, spread) with real dtype-max keys among the
+        dtype-max padding, and the payload numbering the real elements."""
         torch, km, ops, g, dev = self.torch, self.km, self.ops, self.gen, self.dev
-        tile = km.KWAY_TILE
         k = 8
-        win = self.count(22, "merge_window window")
-        imax = torch.iinfo(torch.int32).max
-        log(f"phase merge_window: ops.merge_window -> merge_kway_tile (k {k}, tile {tile})")
-        # Ragged lengths summing to the window, row 3 empty.
+        win = self.count(22, f"merge_window {key_dtype} window")
+        kmax = torch.iinfo(key_dtype).max
         cuts = torch.sort(torch.randint(0, win + 1, (k - 2,), generator=g, device=dev)).values
         edges = torch.cat([cuts.new_zeros(1), cuts, cuts.new_full((1,), win)])
         lengths = torch.diff(edges)
         lengths = torch.cat([lengths[:3], lengths.new_zeros(1), lengths[3:]]).to(torch.int32)
         col = torch.arange(win, device=dev)
         real = col[None, :] < lengths[:, None]
-        keys = torch.randint(0, 1 << 20, (k, win), generator=g, device=dev, dtype=torch.int32)
-        keys[torch.rand((k, win), generator=g, device=dev) < 0.05] = imax
-        keys[~real] = imax  # padding collides with the real INT32_MAX keys
+        keys = torch.randint(0, 1 << 20, (k, win), generator=g, device=dev,
+                             dtype=torch.int32).to(key_dtype) * (spread >> 20)
+        keys[torch.rand((k, win), generator=g, device=dev) < 0.05] = kmax
+        keys[~real] = kmax  # padding collides with the real dtype-max keys
         runs = torch.sort(keys, dim=1).values
         starts = torch.cumsum(lengths, 0) - lengths
-        vals = torch.where(real, starts[:, None] + col[None, :], -1).to(torch.int32)
+        vals = torch.where(real, starts[:, None] + col[None, :], -1).to(val_dtype)
         total = int(lengths.sum())
         self.reset()
         mk, mv = ops.merge_window(runs, vals, lengths, out_len=win)
         launched = self.read_launches()["merge_kway_tile"]
         if launched != 1:
             raise AssertionError(f"merge_kway_tile launched {launched} times")
-        bounds = km.tile_bounds(win, tile, dev)
+        bounds = km.tile_bounds(win, km.KWAY_TILE, dev)
         cb = self.co_rank_kway_batch(bounds, runs, lengths)
         pk, pv = km.merge_kway_tile_plain(runs, cb, vals=vals, out_len=win)
         rk, rv = self.merge_kway_ranked(runs, vals, lengths, out_len=win)
@@ -330,12 +372,13 @@ class Smoke:
         mm_k, err_k = self.mismatch(mk[:total], pk[:total])
         mm_v, err_v = self.mismatch(mv[:total], pv[:total])
         for (ok_k, ok_v), label in (((rk, rv), "merge_kway_ranked"),
-                                    ((lib.values, lib.indices.int()), "torch.sort")):
+                                    ((lib.values, lib.indices.to(val_dtype)), "torch.sort")):
             bad = self.mismatch(mk[:total], ok_k[:total])[0] + self.mismatch(mv[:total], ok_v[:total])[0]
             if bad:
-                raise AssertionError(f"merge_window: {bad} differ from {label}")
+                raise AssertionError(f"merge_window {key_dtype}: {bad} differ from {label}")
+        kind = str(key_dtype).removeprefix("torch.")
         self.record(
-            "merge_kway_tile", f"window payload+lengths int32 k={k} w=2^{22 - self.cut}",
+            "merge_kway_tile", f"window payload+lengths {kind} k={k} w=2^{22 - self.cut}",
             mismatches=mm_k + mm_v, max_abs_err=max(err_k, err_v),
             ms=self.timed_ms(lambda: km.merge_kway_tile(runs, cb, vals=vals, out_len=win), 10),
             plain_ms=self.timed_ms(lambda: km.merge_kway_tile_plain(runs, cb, vals=vals, out_len=win)),

@@ -5,10 +5,11 @@ into its own shared library with a plain C interface, loaded with
 ``ctypes``.  Nothing is built at import: the first CUDA call builds what it
 needs, and :func:`build` compiles several sources at once, one ``nvcc``
 process each.  Libraries live in ``build/repro_torch/`` at the repository
-root, named by a hash of the source and the flags, so an edited source is
-rebuilt and an unchanged one is reused.  A failed build raises with
-``nvcc``'s output; ``-Xptxas -v``'s report of registers and shared memory
-is kept beside each library as ``<lib>.log``.
+root, named by a hash of the source, the shared headers (``csrc/*.cuh``)
+and the flags, so an edited source is rebuilt and an unchanged one is
+reused.  A failed build raises with ``nvcc``'s output; ``-Xptxas -v``'s
+report of registers and shared memory is kept beside each library as
+``<lib>.log``.
 """
 
 from __future__ import annotations
@@ -49,10 +50,13 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    """Where the library of ``csrc/<name>.cu`` is (or will be) built."""
-    digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    """Where the library of ``csrc/<name>.cu`` is (or will be) built.  The
+    name hashes the source, the shared headers ``csrc/*.cuh`` and the
+    flags."""
+    text = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        text += header.read_bytes()
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

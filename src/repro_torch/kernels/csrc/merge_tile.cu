@@ -1,4 +1,6 @@
-// merge_tile.cu — one output tile of the stable merge of two sorted arrays.
+// merge_tile.cu — the stable merge of two sorted arrays, one output tile of
+// kTile elements at a time, by persistent blocks with double-buffered
+// staging.
 //
 // Replaces the TPU kernel merge_tile_kernel (src/repro/kernels/merge.py:57),
 // launched by merge_pallas (merge.py:139, pl.pallas_call at :191).
@@ -8,115 +10,215 @@
 // element — far below the ~300 operations per byte at which the card stops
 // being memory-bound.
 //
-// What the design does about that bound: every input element is read from
-// device memory once and every output element written once, both as
-// contiguous runs of neighbouring addresses (coalesced).  Phase 1 (the
-// co-rank of every tile boundary r*S, computed by the caller in torch ops)
-// gives each block its exact windows A[j_lo, j_hi) and B[k_lo, k_hi), with
-// (j_hi - j_lo) + (k_hi - k_lo) == S except on the ragged last tile, so a
-// block stages exactly the S elements it merges and no more.  All
-// searching happens in shared memory:
-//   * each thread co-ranks its first output rank inside the tile with the
-//     Lemma-1 binary search (the largest jj with A[jj-1] <= B[t-jj]),
-//   * then emits its kItems outputs with the two-finger rule of
-//     repro_torch.core.engine.take_first (ties go to A: stability),
-//   * outputs collect in shared memory and leave with coalesced stores.
-// The ragged last tile is masked in the kernel; nothing is padded.
+// What the design does about that bound.  Phase 1 (the co-rank of every
+// tile boundary r*S, computed by the caller in torch ops) gives tile r its
+// exact windows A[j_lo, j_hi) and B[k_lo, k_hi), which sum to S except on
+// the ragged last tile, so every input element is read from device memory
+// once and every output element written once.  On top of that:
+//   * Persistent blocks: the grid holds as many blocks as fit on the card
+//     at once, and block b merges tiles r = b, b + gridDim.x, ...
+//   * Double buffering: while a block merges tile r out of one shared-memory
+//     stage, the windows of its next tile are in flight into the other, as
+//     16-byte cp.async copies of the 16-byte-aligned superset of each window
+//     (the windows start anywhere; the superset reads at most 30 bytes more
+//     per window, and every 16-byte block it reads holds an element of the
+//     window, so it never leaves the window's pages).  The cuts of the tile
+//     after that are loaded one iteration ahead, so no dependent load delays
+//     the copies.
+//   * Each thread co-ranks its first output inside the tile with the Lemma-1
+//     binary search in shared memory (the largest jj with A[jj-1] <= B[t-jj])
+//     and emits kItems outputs with the two-finger rule of
+//     repro_torch.core.engine.take_first (ties go to A: stability), keeping
+//     both heads in registers.
+//   * kItems is odd, so the warp's strided writes of the merged tile (thread
+//     t at t*kItems + i) fall on distinct shared-memory banks; the tile then
+//     leaves with 16-byte coalesced stores.
 //
 // Keys: int32, int64, float32, float64, float16 and bfloat16 (the 16-bit
 // floats compared after an exact widening to float).  Global offsets are
 // 64-bit.
 
+#include <algorithm>
+#include <atomic>
 #include <cstdint>
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr int kTile = 1024;  // output elements per block
-constexpr int kItems = 4;    // outputs per thread
-constexpr int kThreads = kTile / kItems;
+using repro_tile::kItems;
+using repro_tile::kThreads;
+using repro_tile::kTile;
+using repro_tile::ord;
+using repro_tile::store_tile;
+
+// One stage holds the aligned supersets of both windows of a tile: S
+// elements plus at most 2 * 30 bytes, rounded to 16.
+template <typename T>
+__host__ __device__ constexpr int stage_bytes() {
+  return kTile * static_cast<int>(sizeof(T)) + 64;
+}
+// Two stages and the merged tile.
+template <typename T>
+__host__ __device__ constexpr int smem_bytes() {
+  return 2 * stage_bytes<T>() + kTile * static_cast<int>(sizeof(T));
+}
+
+struct Window {
+  int64_t j_lo, j_hi, k_lo, k_hi;
+};
+
+__device__ __forceinline__ Window load_window(const int32_t* jb,
+                                              const int32_t* kb, int64_t r) {
+  return {__ldg(jb + r), __ldg(jb + r + 1), __ldg(kb + r), __ldg(kb + r + 1)};
+}
+
+// Windows that are not co-ranks of the tile bounds would read or stage out
+// of bounds: fail the launch loudly instead.
+__device__ __forceinline__ void check_window(const Window& x, int64_t r,
+                                             int64_t m, int64_t n) {
+  if (x.j_lo < 0 || x.k_lo < 0 || x.j_hi < x.j_lo || x.k_hi < x.k_lo ||
+      x.j_hi > m || x.k_hi > n || (x.j_hi - x.j_lo) + (x.k_hi - x.k_lo) > kTile ||
+      r * kTile + (x.j_hi - x.j_lo) + (x.k_hi - x.k_lo) > m + n) {
+    __trap();
+  }
+}
+
+// The 16-byte-aligned byte range [lo, hi) covering x[from, to); empty when
+// the window is.
+struct Span {
+  uintptr_t lo, hi;
+};
 
 template <typename T>
-__device__ __forceinline__ T ord(T v) {
-  return v;
+__device__ __forceinline__ Span cover(const T* x, int64_t from, int64_t to) {
+  if (from == to) return {0, 0};
+  const uintptr_t lo = reinterpret_cast<uintptr_t>(x + from) & ~uintptr_t{15};
+  const uintptr_t hi =
+      (reinterpret_cast<uintptr_t>(x + to) + 15) & ~uintptr_t{15};
+  return {lo, hi};
 }
 
-__device__ __forceinline__ float ord(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+__device__ __forceinline__ void cp_async16(void* smem, uintptr_t gmem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
 }
-__device__ __forceinline__ float ord(__half v) { return __half2float(v); }
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most one group of this thread's copies is in flight.
+__device__ __forceinline__ void cp_async_wait_all_but_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Starts the copies of A's window, then B's, into `stage`.
+template <typename T>
+__device__ __forceinline__ void stage_window(const T* a, const T* b,
+                                             const Window& x,
+                                             unsigned char* stage) {
+  const Span sa = cover(a, x.j_lo, x.j_hi);
+  const Span sb = cover(b, x.k_lo, x.k_hi);
+  const int na = static_cast<int>((sa.hi - sa.lo) >> 4);
+  const int nb = static_cast<int>((sb.hi - sb.lo) >> 4);
+  for (int i = threadIdx.x; i < na + nb; i += kThreads) {
+    const uintptr_t g = i < na ? sa.lo + 16 * uintptr_t(i)
+                               : sb.lo + 16 * uintptr_t(i - na);
+    cp_async16(stage + 16 * i, g);
+  }
+}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     merge_tile_kernel(const T* __restrict__ a, const T* __restrict__ b,
                       const int32_t* __restrict__ jb,
                       const int32_t* __restrict__ kb, T* __restrict__ out,
-                      int64_t m, int64_t n) {
-  // Raw storage: shared variables take no constructors (the 16-bit
-  // floats have one).
-  __shared__ __align__(16) unsigned char smem[2 * kTile * sizeof(T)];
-  T* win = reinterpret_cast<T*>(smem);  // A's window, then B's window
-  T* res = win + kTile;                 // the merged tile
+                      int64_t m, int64_t n, int64_t num_tiles) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* res = reinterpret_cast<T*>(smem + 2 * stage_bytes<T>());
 
-  const int64_t r = blockIdx.x;
-  const int64_t j_lo = jb[r];
-  const int64_t j_hi = jb[r + 1];
-  const int64_t k_lo = kb[r];
-  const int64_t k_hi = kb[r + 1];
-  // Windows that are not co-ranks of the tile bounds would read or stage
-  // out of bounds: fail the launch loudly instead.
-  if (j_lo < 0 || k_lo < 0 || j_hi < j_lo || k_hi < k_lo || j_hi > m ||
-      k_hi > n || (j_hi - j_lo) + (k_hi - k_lo) > kTile ||
-      r * kTile + (j_hi - j_lo) + (k_hi - k_lo) > m + n) {
-    __trap();
-  }
-  const int la = static_cast<int>(j_hi - j_lo);
-  const int lb = static_cast<int>(k_hi - k_lo);
-  const int len = la + lb;  // == kTile except on the last tile
+  int64_t r = blockIdx.x;
+  if (r >= num_tiles) return;
+  Window cur = load_window(jb, kb, r);
+  check_window(cur, r, m, n);
+  stage_window(a, b, cur, smem);
+  cp_async_commit();
+  int64_t rn = r + gridDim.x;
+  Window nxt{};
+  if (rn < num_tiles) nxt = load_window(jb, kb, rn);
 
-  for (int i = threadIdx.x; i < len; i += kThreads) {
-    win[i] = i < la ? a[j_lo + i] : b[k_lo + (i - la)];
-  }
-  __syncthreads();
-
-  const T* sa = win;
-  const T* sb = win + la;
-  const int t0 = threadIdx.x * kItems;
-  if (t0 < len) {
-    // Co-rank of local rank t0: the largest jj in [max(0, t0-lb),
-    // min(t0, la)] whose first Lemma condition A[jj-1] <= B[t0-jj] holds
-    // (an exhausted B window satisfies it).
-    int lo = max(0, t0 - lb);
-    int hi = min(t0, la);
-    while (lo < hi) {
-      const int mid = (lo + hi + 1) >> 1;
-      const int kk = t0 - mid;
-      if (kk >= lb || ord(sa[mid - 1]) <= ord(sb[kk])) {
-        lo = mid;
-      } else {
-        hi = mid - 1;
-      }
+  for (int it = 0; r < num_tiles; ++it) {
+    unsigned char* stage = smem + (it & 1) * stage_bytes<T>();
+    // Start the next tile's copies into the other stage (free since the
+    // barrier after the previous merge), and load the cuts after that.
+    Window after{};
+    if (rn < num_tiles) {
+      check_window(nxt, rn, m, n);
+      stage_window(a, b, nxt, smem + ((it + 1) & 1) * stage_bytes<T>());
+      if (rn + gridDim.x < num_tiles) after = load_window(jb, kb, rn + gridDim.x);
     }
-    int ja = lo;
-    int kk = t0 - lo;
+    cp_async_commit();
+    cp_async_wait_all_but_one();  // this tile's copies have landed
+    __syncthreads();
+
+    const int la = static_cast<int>(cur.j_hi - cur.j_lo);
+    const int lb = static_cast<int>(cur.k_hi - cur.k_lo);
+    const int len = la + lb;  // == kTile except on the last tile
+    const Span span_a = cover(a, cur.j_lo, cur.j_hi);
+    const T* sa = reinterpret_cast<const T*>(
+        stage + (reinterpret_cast<uintptr_t>(a + cur.j_lo) & 15));
+    const T* sb = reinterpret_cast<const T*>(
+        stage + (span_a.hi - span_a.lo) +
+        (reinterpret_cast<uintptr_t>(b + cur.k_lo) & 15));
+
+    const int t0 = threadIdx.x * kItems;
+    if (t0 < len) {
+      // Co-rank of local rank t0: the largest jj in [max(0, t0-lb),
+      // min(t0, la)] whose first Lemma condition A[jj-1] <= B[t0-jj] holds
+      // (an exhausted B window satisfies it).
+      int lo = max(0, t0 - lb);
+      int hi = min(t0, la);
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        const int kk = t0 - mid;
+        if (kk >= lb || ord(sa[mid - 1]) <= ord(sb[kk])) {
+          lo = mid;
+        } else {
+          hi = mid - 1;
+        }
+      }
+      int ja = lo;
+      int kk = t0 - lo;
+      T xa = ja < la ? sa[ja] : T();
+      T xb = kk < lb ? sb[kk] : T();
 #pragma unroll
-    for (int it = 0; it < kItems; ++it) {
-      const int t = t0 + it;
-      if (t < len) {
-        // take_first: A has elements left and (B exhausted or A <= B).
-        const bool take_a = ja < la && (kk >= lb || ord(sa[ja]) <= ord(sb[kk]));
-        res[t] = take_a ? sa[ja++] : sb[kk++];
+      for (int i = 0; i < kItems; ++i) {
+        const int t = t0 + i;
+        if (t < len) {
+          // take_first: A has elements left and (B exhausted or A <= B).
+          const bool take_a = ja < la && (kk >= lb || ord(xa) <= ord(xb));
+          res[t] = take_a ? xa : xb;
+          ja += take_a;
+          kk += !take_a;
+          // The taken side's next head.  Past its window's end this reads
+          // the stage's next bytes (B's window, or the stage's slack), which
+          // are never compared.
+          const T next = take_a ? sa[ja] : sb[kk];
+          xa = take_a ? next : xa;
+          xb = take_a ? xb : next;
+        }
       }
     }
-  }
-  __syncthreads();
+    __syncthreads();  // the tile is merged; its stage may be refilled
 
-  T* dst = out + r * kTile;
-  for (int i = threadIdx.x; i < len; i += kThreads) {
-    dst[i] = res[i];
+    store_tile(out + r * kTile, res, len);
+    cur = nxt;
+    nxt = after;
+    r = rn;
+    rn += gridDim.x;
   }
 }
 
@@ -133,13 +235,48 @@ struct Args {
   cudaStream_t stream;
 };
 
+// How many blocks of merge_tile_kernel<T> the device holds at once.  Found
+// once per instance and device, together with the opt-in to more than
+// 48 KiB of shared memory, then read from the cache at every launch.
+template <typename T>
+cudaError_t resident_blocks(int device, int64_t* resident) {
+  constexpr int kMaxDevices = 64;
+  static std::atomic<int64_t> cache[kMaxDevices];
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  *resident = cache[device].load(std::memory_order_relaxed);
+  if (*resident > 0) return cudaSuccess;
+  auto* kernel = merge_tile_kernel<T>;
+  constexpr int smem = smem_bytes<T>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int sms = 0, per_sm = 0;
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, smem);
+  }
+  if (err != cudaSuccess) return err;
+  *resident = static_cast<int64_t>(std::max(per_sm, 1)) * sms;
+  cache[device].store(*resident, std::memory_order_relaxed);
+  return cudaSuccess;
+}
+
 template <typename T>
 int launch(const Args& x) {
-  merge_tile_kernel<T>
-      <<<static_cast<unsigned>(x.num_tiles), kThreads, 0, x.stream>>>(
-          static_cast<const T*>(x.a), static_cast<const T*>(x.b),
-          static_cast<const int32_t*>(x.jb), static_cast<const int32_t*>(x.kb),
-          static_cast<T*>(x.out), x.m, x.n);
+  auto* kernel = merge_tile_kernel<T>;
+  constexpr int smem = smem_bytes<T>();
+  int device = 0;
+  int64_t resident = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = resident_blocks<T>(device, &resident);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t grid = std::min(x.num_tiles, resident);
+  kernel<<<static_cast<unsigned>(grid), kThreads, smem, x.stream>>>(
+      static_cast<const T*>(x.a), static_cast<const T*>(x.b),
+      static_cast<const int32_t*>(x.jb), static_cast<const int32_t*>(x.kb),
+      static_cast<T*>(x.out), x.m, x.n, x.num_tiles);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,11 +5,14 @@ Two kernels, each with a wrapper, a launch counter and a plain PyTorch
 version of the same function:
 
 * :func:`merge_tile` (``csrc/merge_tile.cu``) replaces
-  ``merge_tile_kernel``: one output tile of ``S`` elements of the stable
-  merge of ``A`` and ``B`` per CUDA block.
+  ``merge_tile_kernel``: the output tiles of ``S`` elements of the stable
+  merge of ``A`` and ``B``, walked by persistent CUDA blocks that stage
+  the next tile's windows while they merge the current one.
 * :func:`merge_kway_tile` (``csrc/merge_kway_tile.cu``) replaces
   ``merge_kway_tile_kernel``: one ``S``-tile of the stable merge of ``k``
-  runs, with an optional payload; ragged runs need no kernel change.
+  runs per CUDA block, with an optional payload, as a tree of pairwise
+  merges of the tile's non-empty segments in shared memory; ragged runs
+  need no kernel change.
 
 Both take their tile windows from phase 1 — the co-ranks of every tile
 boundary ``r*S`` (``co_rank_batch`` / ``co_rank_kway_batch`` in torch
@@ -29,7 +32,6 @@ import functools
 
 import torch
 
-from repro_torch.core import engine
 from repro_torch.core.corank import co_rank_batch
 from repro_torch.core.engine import SIDE_STRICT, SIDE_TIES
 from repro_torch.core.kway import co_rank_kway_batch
@@ -48,11 +50,12 @@ __all__ = [
     "KWAY_MAX_RUNS",
 ]
 
-#: Output elements per block: the one tile each kernel is compiled for.
-MERGE_TILE = 1024
-KWAY_TILE = 2048
-#: Most runs one k-way launch merges: its segment table (2k+1 ints) shares
-#: the block's shared memory with the staged tile.
+#: Output elements per tile: the one tile each kernel is compiled for
+#: (256 threads with 15 outputs each; an odd count per thread keeps a warp's
+#: strided shared-memory writes on distinct banks).
+MERGE_TILE = 3840
+KWAY_TILE = 3840
+#: Most runs one k-way launch merges (each block reads its tile's k cuts).
 KWAY_MAX_RUNS = 16384
 
 _MERGE_DTYPES = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2,
@@ -205,37 +208,93 @@ def merge_tiled(a, b) -> torch.Tensor:
 
 def merge_kway_tile_plain(runs, cb, *, tile: int = KWAY_TILE, vals=None,
                           out_len: int):
-    """Plain version of :func:`merge_kway_tile`: ``merge_kway_ranked``
-    restricted to the staged segments.
+    """Plain version of :func:`merge_kway_tile`: the kernel's tile program
+    in torch ops, every tile at once.
 
-    Element ``(q, u)`` of tile ``r`` (``cb[r,q] <= u < cb[r+1,q]``) lands
-    at ``r*tile + (u - cb[r,q]) + sum_{p != q} |{segment-p elements below
-    it}|``, the Lemma-1 side of each pair from the engine.  Elements past
+    Tile ``r`` stages its non-empty segments ``[cb[r,q], cb[r+1,q])`` side
+    by side in run order (compaction), then ``ceil(log2(k'))`` levels merge
+    adjacent segments ``(2i, 2i+1)`` of its ``k'`` segments pairwise, the
+    left one winning ties; an odd segment passes through.  A level places
+    each element at its pair's start plus its index in its own segment plus
+    the sibling segment's elements before it (strict for the left side,
+    ties for the right: the engine's run-index tie-break).  Elements past
     the last cut are not emitted; unwritten outputs are zero.
     """
     k, w = runs.shape
     g = cb.shape[0] - 1
-    out_k = torch.zeros((out_len,), dtype=runs.dtype, device=runs.device)
+    dev = runs.device
+    out_k = torch.zeros((out_len,), dtype=runs.dtype, device=dev)
     out_v = None if vals is None else torch.zeros(
-        (out_len,), dtype=vals.dtype, device=vals.device)
-    if g > 0:
-        cbt = cb.t().contiguous().long()  # (k, G+1)
-        u = torch.arange(w, device=runs.device)
-        for q in range(k):
-            keep = u < cbt[q, g]
-            r = torch.clamp(torch.searchsorted(cbt[q], u, side="right") - 1,
-                            max=g - 1)
-            pos = r * tile + (u - cbt[q, r])
-            for p in range(k):
-                if p == q:
-                    continue
-                lo, hi = cbt[p, r], cbt[p, r + 1]
-                c = torch.searchsorted(runs[p], runs[q],
-                                       side=engine.count_side(p, q))
-                pos += torch.clamp(c, lo, hi) - lo
-            out_k[pos[keep]] = runs[q][keep]
-            if vals is not None:
-                out_v[pos[keep]] = vals[q][keep]
+        (out_len,), dtype=vals.dtype, device=dev)
+    if g == 0:
+        return out_k if vals is None else (out_k, out_v)
+
+    # Compaction: the non-empty segments, tile-major and in run order.
+    lo = cb[:-1].long()
+    n = cb[1:].long() - lo
+    seg_tile, seg_run = torch.nonzero(n > 0, as_tuple=True)
+    seg_n = n[seg_tile, seg_run]
+    kp = torch.bincount(seg_tile, minlength=g)  # k' of every tile
+    first_seg = torch.cumsum(kp, 0) - kp
+    seg_off = torch.cumsum(seg_n, 0) - seg_n  # first element of each segment
+    tile_len = torch.zeros(g, dtype=torch.long, device=dev).index_add_(
+        0, seg_tile, seg_n)
+    tile_off = torch.cumsum(tile_len, 0) - tile_len  # first element of each tile
+    seg_start = seg_off - tile_off[seg_tile]  # tile-local slot of each segment
+
+    # Staging: element e is slot pos[e] of tile t[e], from compacted
+    # segment c[e] (tile-local index) of run q.
+    e_seg = torch.repeat_interleave(torch.arange(seg_n.numel(), device=dev),
+                                    seg_n)
+    u = torch.arange(e_seg.numel(), device=dev) - seg_off[e_seg]
+    t = seg_tile[e_seg]
+    c = e_seg - first_seg[t]
+    pos = seg_start[e_seg] + u
+    src = seg_run[e_seg], lo[t, seg_run[e_seg]] + u
+    keys = runs[src]
+    payload = None if vals is None else vals[src]
+    # Order-preserving integer ranks of the keys (equal keys, -0.0 and
+    # 0.0 included, share one), so that a sibling's elements before a key
+    # can be counted for every segment at once by one search.
+    wide = keys.float() if keys.element_size() == 2 else keys
+    rank = torch.unique(wide, return_inverse=True)[1].long()
+
+    def start(level_seg, step):
+        """Tile-local slot where level segment ``level_seg`` of tile ``t``
+        starts (the tile's length when it has no such segment)."""
+        first = level_seg * step
+        return torch.where(first < kp[t],
+                           seg_start[first_seg[t] + torch.clamp(
+                               first, max=kp[t] - 1)],
+                           tile_len[t])
+
+    step = 1
+    while bool((kp > step).any()):
+        own = c // step  # this level's segment of each element
+        sib = own ^ 1
+        own_start, sib_start = start(own, step), start(sib, step)
+        sib_len = start(sib + 1, step) - sib_start
+        # The level's slots in tile and slot order, keyed (segment, rank):
+        # non-decreasing, since each segment is sorted.
+        level_key = torch.empty_like(rank)
+        level_key[tile_off[t] + pos] = ((first_seg[t] + own) << 31) | rank
+        # The left segment counts its right sibling's keys below its own
+        # (strict); the right one counts its left sibling's ties too.
+        left = own % 2 == 0
+        probe = ((first_seg[t] + sib) << 31) | rank
+        before = torch.where(
+            left,
+            torch.searchsorted(level_key, probe, side=SIDE_STRICT),
+            torch.searchsorted(level_key, probe, side=SIDE_TIES),
+        ) - (tile_off[t] + sib_start)
+        before = torch.minimum(before.clamp(min=0), sib_len)
+        pair_start = torch.where(left, own_start, sib_start)
+        pos = pair_start + (pos - own_start) + before
+        step *= 2
+
+    out_k[t * tile + pos] = keys
+    if vals is not None:
+        out_v[t * tile + pos] = payload
     return out_k if vals is None else (out_k, out_v)
 
 

@@ -249,6 +249,127 @@ def test_merge_kway_tiled_any_k_and_wide_dtypes_match_numpy(k):
         np.testing.assert_array_equal(gv.numpy()[:total], vals[real][order])
 
 
+# --- the merge tree of merge_kway_tile ------------------------------------------
+
+
+def _tree_case(k, w, seed, form):
+    """Sorted int32 runs with INT32_MAX padding and a payload numbering the
+    real elements: ``dense`` (full rows), ``ragged`` (random lengths, every
+    third row empty) or ``all_equal`` (one key in every run)."""
+    rng = np.random.default_rng(seed)
+    hi = np.iinfo(np.int32).max
+    lengths = np.full(k, w, np.int32)
+    if form == "ragged":
+        lengths = rng.integers(0, w + 1, k).astype(np.int32)
+        lengths[::3] = 0
+    runs = np.full((k, w), hi, np.int32)
+    for q in range(k):
+        if form == "all_equal":
+            runs[q, : lengths[q]] = 7
+        else:
+            runs[q, : lengths[q]] = np.sort(
+                rng.choice(np.array([hi, 3, 1, -9], np.int32), lengths[q]))
+    vals = np.arange(k * w, dtype=np.int32).reshape(k, w)
+    real = np.arange(w)[None, :] < lengths[:, None]
+    order = np.argsort(runs[real], kind="stable")
+    return runs, vals, lengths, runs[real][order], vals[real][order]
+
+
+def _pallas_kway(runs, vals, lengths, tile, group=5):
+    """``merge_kway_pallas`` in interpret mode over numpy ``(k, w)`` runs
+    with a payload and ragged ``lengths``: the real part of the merge.
+    Above k = 17 it merges groups of ``group`` runs, then the groups (their
+    padding set back to dtype-max), both levels by the Pallas kernel.  That
+    is the same stable merge, as ties go to the earlier run at each level,
+    and it compiles in seconds: the kernel unrolls k^2 searches, so one
+    40-run call takes about two minutes to compile on a CPU."""
+    total = int(lengths.sum())
+    if runs.shape[0] <= 17:
+        pk, pv = merge_kway_pallas(jnp.asarray(runs), jnp.asarray(vals),
+                                   lengths=jnp.asarray(lengths), tile=tile)
+        return np.asarray(pk)[:total], np.asarray(pv)[:total]
+    k, w = runs.shape
+    assert k % group == 0, "groups of one shape compile once"
+    g = k // group
+    gk = np.full((g, group * w), np.iinfo(runs.dtype).max, runs.dtype)
+    gv = np.zeros((g, group * w), vals.dtype)
+    glen = lengths.reshape(g, group).sum(axis=1).astype(np.int32)
+    for i in range(g):
+        part = slice(i * group, (i + 1) * group)
+        gk[i, : glen[i]], gv[i, : glen[i]] = _pallas_kway(
+            runs[part], vals[part], lengths[part], tile)
+    return _pallas_kway(gk, gv, glen, tile)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 5, 16, 17, 40])
+def test_merge_kway_tree_matches_pallas_interpret(k):
+    """The tree tile program (plain version) against the Pallas kernel in
+    interpret mode, keys and payload: ragged rows with empty ones,
+    dtype-max keys among the padding, tile 32 (so at k = 40 most segments
+    of a tile are empty)."""
+    runs, vals, lengths, want_k, want_v = _tree_case(k, 40, k, "ragged")
+    total = int(lengths.sum())
+    gk, gv = _kway_at_tile(torch.from_numpy(runs), torch.from_numpy(vals),
+                           lengths=torch.from_numpy(lengths), tile=32)
+    pk, pv = _pallas_kway(runs, vals, lengths, tile=32)
+    np.testing.assert_array_equal(gk.numpy()[:total], pk)
+    np.testing.assert_array_equal(gv.numpy()[:total], pv)
+    np.testing.assert_array_equal(gk.numpy()[:total], want_k)
+    np.testing.assert_array_equal(gv.numpy()[:total], want_v)
+
+
+def test_merge_kway_tree_all_equal_matches_pallas_interpret():
+    """One key in every run: the order is the run order alone, which only
+    the left-wins tie rule of every level gives."""
+    runs, vals, lengths, want_k, want_v = _tree_case(5, 40, 0, "all_equal")
+    gk, gv = _kway_at_tile(torch.from_numpy(runs), torch.from_numpy(vals),
+                           tile=32)
+    pk, pv = merge_kway_pallas(jnp.asarray(runs), jnp.asarray(vals), tile=32)
+    np.testing.assert_array_equal(gk.numpy(), np.asarray(pk))
+    np.testing.assert_array_equal(gv.numpy(), np.asarray(pv))
+    np.testing.assert_array_equal(gv.numpy(), want_v)
+
+
+@pytest.mark.parametrize("tile", [16, 128])
+@pytest.mark.parametrize("form", ["dense", "ragged", "all_equal"])
+@pytest.mark.parametrize("k", [1, 2, 3, 5, 16, 17, 40])
+def test_merge_kway_tree_sweep_matches_numpy(k, form, tile):
+    runs, vals, lengths, want_k, want_v = _tree_case(k, 37, k + tile, form)
+    total = int(lengths.sum())
+    gk, gv = _kway_at_tile(torch.from_numpy(runs), torch.from_numpy(vals),
+                           lengths=torch.from_numpy(lengths), tile=tile)
+    np.testing.assert_array_equal(gk.numpy()[:total], want_k)
+    np.testing.assert_array_equal(gv.numpy()[:total], want_v)
+
+
+@pytest.mark.parametrize("k,w", [(300, 3), (64, 1)])
+def test_merge_kway_tree_more_runs_than_tile_slots(k, w):
+    """k far above the tile (16): most segments of every tile are empty and
+    compaction leaves segments of length 0 (dropped), 1, or the only one."""
+    runs, vals, lengths, want_k, want_v = _tree_case(k, w, 5, "ragged")
+    total = int(lengths.sum())
+    cb = co_rank_kway_batch(km.tile_bounds(total, 16, "cpu"),
+                            torch.from_numpy(runs), torch.from_numpy(lengths))
+    seg = (cb[1:] - cb[:-1]).numpy()
+    assert ((seg > 0).sum(axis=1) <= 16).all() and (seg == 1).any()
+    gk, gv = km.merge_kway_tile_plain(torch.from_numpy(runs), cb, tile=16,
+                                      vals=torch.from_numpy(vals),
+                                      out_len=total)
+    np.testing.assert_array_equal(gk.numpy(), want_k)
+    np.testing.assert_array_equal(gv.numpy(), want_v)
+
+
+def test_merge_kway_tree_single_segment_tiles():
+    """Tiles drawn wholly from one run need no merge level: the staged
+    segment is the output."""
+    runs = torch.stack([torch.arange(0, 64, dtype=torch.int32),
+                        torch.arange(64, 128, dtype=torch.int32)])
+    cb = co_rank_kway_batch(km.tile_bounds(128, 16, "cpu"), runs)
+    assert (((cb[1:] - cb[:-1]) > 0).sum(dim=1) == 1).all()
+    got = km.merge_kway_tile_plain(runs, cb, tile=16, out_len=128)
+    np.testing.assert_array_equal(got.numpy(), np.arange(128))
+
+
 def test_wrappers_check_alike_on_cpu_and_card():
     """The wrappers validate before they pick the plain version, so a call
     the kernel would refuse is refused on the CPU too."""
