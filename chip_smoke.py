@@ -25,7 +25,18 @@ full data size through the entry points a user calls:
                    passes, 64 windows through ``merge_kway_tile``), then
                    ``external_sort`` of 11 * 2^21 int64 keys with an int64
                    payload (chunk 2^21, fanout 8, window 2^20: 11 runs, a
-                   tail group of 3, 44 windows).
+                   tail group of 3, 44 windows); the spill sort of one
+                   chunk timed on the ``cuda`` and ``torch`` merge
+                   backends (its first passes run the grouped launch);
+6. serve         — the merge top-k of (16, 151936) float32 and bfloat16
+                   logits (``batched_topk``, k 50, fanout 4: ten grouped
+                   launches of ``merge_kway_tile``), then ``DecodeEngine``
+                   on qwen3-0.6b at full width (28 layers, d 1024, vocab
+                   151936, bf16, 16 slots, max_len 1024, random weights from
+                   a seeded generator): 32 requests with staggered arrivals,
+                   served with the ``topk`` sampler on the ``cuda`` merge
+                   backend (the main path), again on ``torch`` (every token
+                   stream must be equal), and with ``greedy``.
 
 Every phase sets the kernels' launch counters to 0 just before its main
 path and reads them just after; it holds each kernel's output against the
@@ -33,7 +44,10 @@ kernel's plain PyTorch version on the same inputs on the card (bit for
 bit: these are permutations, no arithmetic touches the values) and
 against ``torch.sort(stable=True)``.  A mismatch, a launch count of 0 or
 any exception fails the run.  Times are CUDA-event medians after a
-warm-up.  ``bound_ms`` is the larger of the bytes the function must move
+warm-up, except for the grouped launches of the top-k: a launch takes a
+few microseconds, less than the host needs to issue it, so their ``ms`` is
+the device time ``torch.profiler`` reports (``call_ms`` keeps the event
+time of a call).  ``bound_ms`` is the larger of the bytes the function must move
 (each input read once, each output written once) over the H100's
 3.35 TB/s, and the comparisons a merge needs (``log2(k)`` per element)
 over its 67 T/s of 32-bit operations outside the tensor cores.
@@ -42,6 +56,15 @@ Each timed case's line also shows ``pr11_ms``, the time of the kernels'
 first design (tiles 1024 and 2048, one block per tile) for the same case,
 read from the "PR 11 ms" column of ``PERF.md``'s per-shape table where it
 has one; it was not measured by this run and stays out of the JSON lines.
+
+The serve phase checks the top-k bit for bit: the kernel path against
+the plain path and both against ``torch.sort(-(x.float() + 0.0),
+stable=True)`` cut to k (``+ 0.0`` folds ``-0.0`` into ``+0.0``, which the
+card's radix sort would order apart).  It reports steps, tokens per second
+and the median and p90 step time with the sampler's share, from CUDA
+events, and holds one bf16 decode step's logits against a float32 one of
+the same weights (relative L2 error under 0.1: bf16 keeps about three
+digits through 28 residual layers).
 
 Output: one line per phase, the card's name and power limit, one
 ``{"kernels": [...]}`` JSON line, and last
@@ -55,6 +78,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -71,6 +95,7 @@ MERGE_SRC = "src/repro_torch/kernels/csrc/merge_tile.cu"
 KWAY_SRC = "src/repro_torch/kernels/csrc/merge_kway_tile.cu"
 MERGE_TPU = "src/repro/kernels/merge.py:57"
 KWAY_TPU = "src/repro/kernels/merge.py:235"
+KERNELS = ("merge_tile", "merge_kway_tile", "merge_kway_tile_groups")
 
 
 def log(msg: str) -> None:
@@ -119,6 +144,7 @@ class Smoke:
     def __init__(self, torch, quick: bool):
         from repro_torch.core.corank import co_rank_batch
         from repro_torch.core.kway import co_rank_kway_batch, merge_kway_ranked
+        from repro_torch.core.mergesort import sort_key_val
         from repro_torch.external.api import external_argsort, external_sort
         from repro_torch.kernels import _build, merge as km, ops
 
@@ -132,8 +158,9 @@ class Smoke:
         self.merge_kway_ranked = merge_kway_ranked
         self.external_argsort = external_argsort
         self.external_sort = external_sort
-        self.cases = {"merge_tile": [], "merge_kway_tile": []}
-        self.launches = {"merge_tile": 0, "merge_kway_tile": 0}
+        self.sort_key_val = sort_key_val
+        self.cases = {name: [] for name in KERNELS}
+        self.launches = {name: 0 for name in KERNELS}
         self.failed = []
         self.pr11_ms = recorded_ms("PR 11 ms")
 
@@ -200,14 +227,46 @@ class Smoke:
         d = (got[diff].double() - want[diff].double()).abs()
         return n, float(torch.nan_to_num(d, nan=float("inf")).max())
 
+    def device_profile(self, fn):
+        """Run ``fn`` once under ``torch.profiler``: ``(wall ms, device ms,
+        {kernel name: (launches, device ms)})``.  The device time is the
+        sum of the kernels' own times (one stream: they do not overlap);
+        ``None`` when the profiler saw no device time."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        kernels = {}
+        for e in prof.key_averages():
+            dev = getattr(e, "self_device_time_total",
+                          getattr(e, "self_cuda_time_total", 0))
+            if dev > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+                kernels[e.key] = (e.count, dev / 1e3)
+        busy = sum(ms for _, ms in kernels.values())
+        return wall, (busy if busy > 0 else None), kernels
+
+    def kernel_device_ms(self, fn, reps: int = 20):
+        """Mean device time of the one CUDA kernel ``fn`` launches, over
+        ``reps`` calls under the profiler (None if it saw none)."""
+        def run():
+            for _ in range(reps):
+                fn()
+        _, busy, kernels = self.device_profile(run)
+        return None if busy is None else busy / max(1, sum(c for c, _ in kernels.values()))
+
     def reset(self) -> None:
-        self.km.merge_tile.launches = 0
-        self.km.merge_kway_tile.launches = 0
+        for name in KERNELS:
+            getattr(self.km, name).launches = 0
 
     def read_launches(self) -> dict:
         self.torch.cuda.synchronize()
-        got = {"merge_tile": self.km.merge_tile.launches,
-               "merge_kway_tile": self.km.merge_kway_tile.launches}
+        got = {name: getattr(self.km, name).launches for name in KERNELS}
         for name, n in got.items():
             self.launches[name] += n
         return got
@@ -448,12 +507,276 @@ class Smoke:
         gaps = [b - a for a, b in zip(stamps, stamps[1:])]
         log(f"  {what}: {secs:.3f} s wall, "
             f"{n / secs / 1e6:.2f} Melem/s, {bad} mismatches vs torch.sort, "
-            f"merge_kway_tile launches {launched['merge_kway_tile']}; "
+            f"merge_kway_tile launches {launched['merge_kway_tile']}, "
+            f"grouped launches (spill sort) "
+            f"{launched['merge_kway_tile_groups']}; "
             f"spill phase + first window {stamps[0] - t0:.3f} s, "
             f"median window {statistics.median(gaps):.4f} s, "
             f"last window to return {secs - (stamps[-1] - t0):.3f} s")
         if bad:
             raise AssertionError(f"{what}: {bad} mismatches")
+        if launched["merge_kway_tile_groups"] == 0:
+            raise AssertionError(f"{what}: the spill sort made no grouped launch")
+        # The spill sort of one chunk on each merge backend: its first
+        # passes on the grouped launch (cuda) or in torch ops (torch).
+        chunk_dev = keys_dev[:chunk].contiguous()
+        if wide:
+            pay = torch.arange(chunk, device=self.dev, dtype=torch.int64)
+            sort = lambda: self.sort_key_val(chunk_dev, pay)  # noqa: E731
+        else:
+            sort = lambda: self.ops.stable_sort(chunk_dev)  # noqa: E731
+        spill_ms = {}
+        for backend in ("cuda", "torch", "torch", "cuda"):
+            with backend_env(self.ops, backend):
+                spill_ms.setdefault(backend, []).append(self.timed_ms(sort))
+        log(f"  spill sort of one {chunk}-key chunk: grouped launch (cuda) "
+            f"{spill_ms['cuda']} ms, torch ops {spill_ms['torch']} ms "
+            f"(order cuda, torch, torch, cuda)")
+
+    def phase_serve(self) -> None:
+        self.serve_topk()
+        self.serve_engine()
+
+    def topk_logits(self, b: int, n: int):
+        """(b, n) float32 logits: duplicate-heavy multiples of 1/4, with
+        +-inf and +-0.0 mixed in."""
+        torch, g, dev = self.torch, self.gen, self.dev
+        x = torch.randint(-512, 512, (b, n), generator=g, device=dev,
+                          dtype=torch.int32).float() / 4
+        u = torch.rand((b, n), generator=g, device=dev)
+        for lo, hi, v in ((0.000, 0.001, float("inf")),
+                          (0.001, 0.011, float("-inf")),
+                          (0.011, 0.021, 0.0), (0.021, 0.031, -0.0)):
+            x[(u >= lo) & (u < hi)] = v
+        return x
+
+    def serve_topk(self) -> None:
+        """The batched merge top-k at full vocab width: kernel path against
+        plain path and the torch.sort oracle; entry, plain and torch.topk
+        times; every grouped launch of one top-k timed at its shape."""
+        from repro_torch.core.topk import candidate_blocks, tournament_rounds
+        from repro_torch.serving.sampling import batched_topk
+
+        torch, km, ops = self.torch, self.km, self.ops
+        b, n, k, fanout = 16, 151936, 50, 4
+        x32 = self.topk_logits(b, n)
+        b, n = x32.shape
+        block, nb = candidate_blocks(n, k)
+        # log4(block) block-sort passes, then the tournament rounds
+        expect = (block.bit_length() - 1 + 1) // 2 + len(tournament_rounds(nb, fanout))
+        log(f"phase serve: batched_topk ({b}, {n}) k={k} fanout={fanout} "
+            f"-> merge_kway_tile_groups (tile {km.KWAY_TILE}), {expect} "
+            f"grouped launches per call")
+        for x in (x32, x32.to(torch.bfloat16)):
+            kind = str(x.dtype).removeprefix("torch.")
+            self.reset()
+            with backend_env(ops, "cuda"):
+                vals, idx = batched_topk(x, k, fanout=fanout)
+            launched = self.read_launches()["merge_kway_tile_groups"]
+            with backend_env(ops, "torch"):
+                pvals, pidx = batched_topk(x, k, fanout=fanout)
+            order = torch.sort(-(x.float() + 0.0), dim=1, stable=True).indices[:, :k]
+            bad = int((idx != pidx).sum()) + self.mismatch(vals, pvals)[0]
+            bad_oracle = int((idx.long() != order).sum()) + self.mismatch(
+                vals, torch.gather(x, 1, order))[0]
+            with backend_env(ops, "cuda"):
+                entry_ms = self.timed_ms(lambda: batched_topk(x, k, fanout=fanout), 20)
+            with backend_env(ops, "torch"):
+                plain_ms = self.timed_ms(lambda: batched_topk(x, k, fanout=fanout), 10)
+            topk_ms = self.timed_ms(lambda: torch.topk(x, k), 20)
+            log(f"  batched_topk {kind}: {launched} grouped launches, "
+                f"{bad} differ from the plain path, {bad_oracle} from the "
+                f"torch.sort oracle; entry_ms={entry_ms:.4f} "
+                f"plain_ms={plain_ms:.4f} torch.topk_ms={topk_ms:.4f}")
+            if launched != expect or bad or bad_oracle:
+                raise AssertionError(f"batched_topk {kind}: {launched} launches, "
+                                     f"{bad} + {bad_oracle} mismatches")
+
+        # Every grouped launch of one float32 top-k, at its own shape.
+        seen = []
+        real = km.merge_kway_tile_groups
+
+        def capture(keys, vals=None):
+            seen.append((keys.clone(), None if vals is None else vals.clone()))
+            return real(keys, vals)
+
+        capture.launches = 0  # the wrapper counts on the name it is bound to
+        km.merge_kway_tile_groups = capture
+        try:
+            with backend_env(ops, "cuda"):
+                batched_topk(x32, k, fanout=fanout)
+        finally:
+            km.merge_kway_tile_groups = real
+        # Device time of the grouped launches of one top-k, by the profiler:
+        # the event times below include the host's launch of each call.
+        with backend_env(ops, "cuda"):
+            wall, busy, kernels = self.device_profile(
+                lambda: batched_topk(x32, k, fanout=fanout))
+        grouped = [(c, ms) for name, (c, ms) in kernels.items()
+                   if "merge_kway_groups_kernel" in name]
+        log(f"  profile of one batched_topk: wall {wall:.4f} ms, device "
+            f"{'not measured' if busy is None else f'{busy:.4f} ms'}; "
+            f"grouped kernels {sum(c for c, _ in grouped)} launches, "
+            f"{sum(ms for _, ms in grouped):.4f} ms on the device")
+        for name, (c, ms) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:6]:
+            log(f"    {ms:.4f} ms in {c} launches: {name[:90]}")
+        for step, (keys, vals) in enumerate(seen):
+            g, kk, w = keys.shape
+            got = real(keys, vals)
+            want = km.merge_kway_groups_plain(keys, vals)
+            mm_k, err_k = self.mismatch(got[0], want[0])
+            mm_v, _ = self.mismatch(got[1], want[1])
+            flat = keys.reshape(g, kk * w)
+            elems = g * kk * w
+            # A launch takes microseconds, less than the host takes to issue
+            # it: its time is the profiler's device time; the CUDA-event
+            # time of a call (call_ms) measures the host too.
+            call_ms = self.timed_ms(lambda: real(keys, vals), 50)
+            device_ms = self.kernel_device_ms(lambda: real(keys, vals))
+            self.record(
+                "merge_kway_tile_groups",
+                f"topk {'round' if w == k else 'block sort'} ({g},{kk},{w}) float32+int32",
+                mismatches=mm_k + mm_v, max_abs_err=err_k,
+                ms=call_ms if device_ms is None else device_ms,
+                plain_ms=self.timed_ms(lambda: km.merge_kway_groups_plain(keys, vals), 10),
+                library_ms=self.timed_ms(lambda: torch.sort(flat, dim=1, stable=True), 20),
+                nbytes=2 * elems * (keys.element_size() + vals.element_size()),
+                ops=elems * max(1, (kk - 1).bit_length()),
+                call_ms=call_ms,
+                device_ms=device_ms,
+            )
+
+    def serve_engine(self) -> None:
+        """DecodeEngine on qwen3-0.6b at full width: topk on the cuda and
+        torch merge backends (equal streams), then greedy."""
+        import dataclasses
+
+        import numpy as np
+        from repro_torch.configs.registry import ARCHS
+        from repro_torch.models import transformer as tm
+        from repro_torch.serving import DecodeEngine, Request
+
+        torch, ops = self.torch, self.ops
+        cfg = ARCHS["qwen3-0.6b"]
+        gen = torch.Generator(device=self.dev).manual_seed(20131303)
+        params = tm.init_params(cfg, gen, device=self.dev)
+        n_params = sum(t.numel() for t in _leaves(params))
+        rng = np.random.default_rng(20131303)
+        n_req, every = 32 >> min(self.cut, 4), 2
+        reqs = [(i * every, i, rng.integers(1, cfg.vocab, int(rng.integers(32, 129)),
+                                            dtype=np.int32),
+                 int(rng.integers(32, 65))) for i in range(n_req)]
+        log(f"phase serve: DecodeEngine {cfg.name} ({n_params / 1e9:.3f} B params, "
+            f"{cfg.n_layers} layers, d {cfg.d_model}, vocab {cfg.vocab}, "
+            f"{cfg.dtype}), {cfg.max_batch} slots, max_len 1024, {n_req} "
+            f"requests arriving every {every} steps")
+
+        class Timed(DecodeEngine):
+            """Records CUDA events around the two device stages of a step."""
+
+            def _decode(self, tokens, active):
+                self.ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+                self.ev[0].record()
+                out = super()._decode(tokens, active)
+                self.ev[1].record()
+                return out
+
+            def _sample(self, keys, logits):
+                out = super()._sample(keys, logits)
+                self.ev[2].record()
+                self.events.append(self.ev)
+                return out
+
+        def serve(sampler: str, backend: str, reqs=reqs):
+            eng = Timed(cfg, params, max_len=1024, sampler=sampler, top_k=50,
+                        seed=7, device=self.dev)
+            eng.events = []
+            arrivals = [(t, Request(rid, prompt, new)) for t, rid, prompt, new in reqs]
+            with backend_env(ops, backend):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = eng.run(arrivals=arrivals)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+            eng.scheduler.check_invariants()
+            eng.pool.check_invariants()
+            steps = [(e0.elapsed_time(e1), e1.elapsed_time(e2)) for e0, e1, e2 in eng.events]
+            return out, eng.steps, secs, steps
+
+        serve("topk", "cuda", reqs[:2])  # warm-up: cuBLAS, allocator
+        self.reset()
+        got, steps, secs, times = serve("topk", "cuda")
+        launched = self.read_launches()
+        plain, *_ = serve("topk", "torch")
+        greedy, g_steps, g_secs, g_times = serve("greedy", "cuda")
+        tokens = sum(len(t) for t in got.values())
+        differ = [rid for rid in got if got[rid] != plain.get(rid)]
+        for label, res, st, sec, tm_ in (("topk", got, steps, secs, times),
+                                         ("greedy", greedy, g_steps, g_secs, g_times)):
+            step_ms = [a + b for a, b in tm_]
+            q = statistics.quantiles(step_ms, n=10)
+            log(f"  serve {label}: {len(res)} requests, "
+                f"{sum(len(t) for t in res.values())} tokens, {st} steps, "
+                f"{sec:.3f} s wall, {sum(len(t) for t in res.values()) / sec:.1f} tok/s; "
+                f"step median {statistics.median(step_ms):.3f} ms, "
+                f"p90 {q[-1]:.3f} ms (CUDA events: decode + sample); "
+                f"sampler share {sum(b for _, b in tm_) / sum(step_ms):.3f}, "
+                f"sampler median {statistics.median(b for _, b in tm_):.3f} ms")
+        log(f"  serve topk main path: merge_kway_tile_groups launches "
+            f"{launched['merge_kway_tile_groups']}; {len(differ)} of {len(got)} "
+            f"token streams differ between the cuda and torch merge backends")
+        bad_tok = [rid for res in (got, greedy) for rid, t in res.items()
+                   if not all(0 <= v < cfg.vocab for v in t)]
+        if launched["merge_kway_tile_groups"] == 0 or differ or bad_tok \
+                or len(got) != n_req or tokens != sum(r[3] for r in reqs):
+            raise AssertionError(
+                f"serve: launches {launched}, streams differ {differ}, "
+                f"tokens out of range {bad_tok}, {len(got)} requests served")
+
+        # Device busy share of five steady steps with every slot decoding.
+        eng = DecodeEngine(cfg, params, max_len=1024, sampler="topk", top_k=50,
+                           seed=7, device=self.dev)
+        for rid, (_, _, prompt, _) in enumerate(reqs[:cfg.max_batch]):
+            eng.submit(Request(rid, prompt[:32], 64))
+        with backend_env(ops, "cuda"):
+            for _ in range(40):
+                eng.step()
+            wall, busy, kernels = self.device_profile(
+                lambda: [eng.step() for _ in range(5)])
+        launches = sum(c for c, _ in kernels.values())
+        log(f"  profile of 5 decode steps ({cfg.max_batch} slots busy): wall {wall:.3f} ms, "
+            f"device {'not measured' if busy is None else f'{busy:.3f} ms'}"
+            + ("" if busy is None else f", busy share {busy / wall:.3f}, "
+               f"idle share {1 - busy / wall:.3f}")
+            + f", {launches / 5:.0f} kernel launches per step")
+        for name, (c, ms) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]:
+            log(f"    {ms / 5:.4f} ms/step in {c // 5} launches/step: {name[:90]}")
+        del eng
+
+        # One bf16 decode step against a float32 one of the same weights.
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        b, steps_ = cfg.max_batch, 4
+        toks = torch.randint(0, cfg.vocab, (steps_, b, 1), generator=self.gen,
+                             device=self.dev)
+        logits = {}
+        for c, cache_dtype in ((cfg, torch.bfloat16), (cfg32, torch.float32)):
+            p = tm.compute_params(c, params)
+            cache = tm.init_cache(c, b, 1024, dtype=cache_dtype, device=self.dev)
+            lengths = torch.arange(b, device=self.dev, dtype=torch.int32) * 7
+            for s in range(steps_):
+                out, cache = tm.decode_step_ragged(c, p, cache, toks[s], lengths)
+                lengths = cache.length
+            logits[c.dtype] = out
+            del p, cache
+        lo, hi = logits["bfloat16"], logits["float32"]
+        rel = float((lo - hi).norm() / hi.norm())
+        finite = bool(torch.isfinite(lo).all() and torch.isfinite(hi).all())
+        log(f"  decode_step_ragged bf16 vs float32 logits ({b}, {cfg.vocab}) "
+            f"after {steps_} steps: relative L2 error {rel:.5f} (limit 0.1), "
+            f"finite {finite}, argmax agreement "
+            f"{float((lo.argmax(1) == hi.argmax(1)).float().mean()):.3f}")
+        if not finite or not rel < 0.1 or lo.shape != (b, cfg.vocab):
+            raise AssertionError(f"decode logits: relative error {rel}, finite {finite}")
 
     # -- report -------------------------------------------------------------
 
@@ -462,6 +785,7 @@ class Smoke:
         for name, source, replaces in (
             ("merge_tile", MERGE_SRC, MERGE_TPU),
             ("merge_kway_tile", KWAY_SRC, KWAY_TPU),
+            ("merge_kway_tile_groups", KWAY_SRC, KWAY_TPU),
         ):
             cases = self.cases[name]
             head = cases[0] if cases else {}
@@ -478,6 +802,31 @@ class Smoke:
                 "case": head.get("case"), "cases": cases,
             })
         return {"kernels": entries}
+
+
+class backend_env:
+    """Set the port's merge backend variable for a block, then restore it."""
+
+    def __init__(self, ops, backend: str):
+        self.var, self.backend = ops.BACKEND_ENV_VAR, backend
+
+    def __enter__(self):
+        self.old = os.environ.get(self.var)
+        os.environ[self.var] = self.backend
+
+    def __exit__(self, *exc):
+        if self.old is None:
+            os.environ.pop(self.var, None)
+        else:
+            os.environ[self.var] = self.old
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 def _demangle(symbol: str | None) -> str:
@@ -526,7 +875,8 @@ def main() -> int:
     smoke = Smoke(torch, args.quick)
     t_start = time.perf_counter()
     for phase in (smoke.phase_build, smoke.phase_merge, smoke.phase_merge_kway,
-                  smoke.phase_merge_window, smoke.phase_external):
+                  smoke.phase_merge_window, smoke.phase_external,
+                  smoke.phase_serve):
         t0 = time.perf_counter()
         try:
             phase()

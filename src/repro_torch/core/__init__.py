@@ -1,6 +1,6 @@
 """Core: co-ranking and load-balanced stable merge (torch port).
 
-Exports the ported part of ``repro.core``; top-k, the baselines and the
+Exports the ported part of ``repro.core``; the baselines and the
 distributed shim are not ported yet.
 """
 
@@ -20,9 +20,16 @@ from repro_torch.core.kway import (
 )
 from repro_torch.core.mergesort import (
     merge_argsort,
+    merge_runs_plain,
     merge_runs_ranked,
     merge_sort,
     sort_key_val,
+)
+from repro_torch.core.topk import (
+    candidate_blocks,
+    merge_topk,
+    merge_topk_batch,
+    tournament_rounds,
 )
 
 __all__ = [
@@ -39,7 +46,12 @@ __all__ = [
     "merge_kway",
     "merge_kway_ranked",
     "merge_argsort",
+    "merge_runs_plain",
     "merge_runs_ranked",
     "merge_sort",
     "sort_key_val",
+    "candidate_blocks",
+    "merge_topk",
+    "merge_topk_batch",
+    "tournament_rounds",
 ]

@@ -8,7 +8,9 @@ out in input order), so the whole sort is stable without key widening.
 
 The input is padded to the next power of two with :func:`sentinel_max`,
 which sorts to the tail and is sliced off.  The ``g`` groups of a pass are
-a leading batch dimension.
+a leading batch dimension.  On the card, a pass whose groups fit one tile
+of ``merge_kway_tile`` runs as that kernel's grouped launch
+(:func:`merge_runs_ranked`).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.backend import announce, dispatch
 from repro_torch.core.kway import kway_positions
 
 __all__ = [
@@ -23,6 +26,7 @@ __all__ = [
     "merge_argsort",
     "sort_key_val",
     "merge_runs_ranked",
+    "merge_runs_plain",
     "sentinel_max",
     "DEFAULT_FANOUT",
 ]
@@ -52,10 +56,11 @@ def _pad_max(x: torch.Tensor, pad: int) -> torch.Tensor:
     return torch.cat([x, fill])
 
 
-def merge_runs_ranked(keys: torch.Tensor, vals: torch.Tensor | None):
-    """Merge groups of adjacent sorted runs: ``keys`` ``(g, k, w)`` with
-    every ``keys[i, r]`` sorted -> ``(g, k*w)`` stably merged (lower ``r``
-    wins ties).  ``vals`` (same shape) follows the same permutation."""
+def merge_runs_plain(keys: torch.Tensor, vals: torch.Tensor | None = None):
+    """Rank merge of groups of adjacent sorted runs in torch ops: every
+    element's output position (``kway_positions``, lower run wins ties),
+    then a scatter.  ``keys`` ``(g, k, w)`` -> ``(g, k*w)``; ``vals`` (same
+    shape, or ``None``) follows the same permutation."""
     g, k, w = keys.shape
     pos = kway_positions(keys).reshape(g, k * w).long()
     out_k = torch.empty((g, k * w), dtype=keys.dtype, device=keys.device)
@@ -65,6 +70,32 @@ def merge_runs_ranked(keys: torch.Tensor, vals: torch.Tensor | None):
     out_v = torch.empty((g, k * w), dtype=vals.dtype, device=vals.device)
     out_v.scatter_(1, pos, vals.reshape(g, k * w))
     return out_k, out_v
+
+
+def merge_runs_ranked(keys: torch.Tensor, vals: torch.Tensor | None):
+    """Merge groups of adjacent sorted runs: ``keys`` ``(g, k, w)`` with
+    every ``keys[i, r]`` sorted -> ``(g, k*w)`` stably merged (lower ``r``
+    wins ties).  ``vals`` (same shape) follows the same permutation.
+
+    The backend follows ``REPRO_TORCH_MERGE_BACKEND`` (``repro_torch.backend``;
+    ``auto`` is ``cuda`` for CUDA tensors).  On ``cuda``, groups that fit
+    one tile (``k*w <= KWAY_TILE``) go to the grouped launch of
+    ``merge_kway_tile`` (``kernels.merge.merge_kway_tile_groups``), which
+    raises for dtypes it does not take; wider groups (merge sort's later
+    passes) keep :func:`merge_runs_plain`.  That choice is made by shape,
+    before any launch, and is logged once as ``kernels.backend_selected``.
+    """
+    op = "merge_runs_ranked"
+    keys = keys.contiguous()
+    vals = None if vals is None else vals.contiguous()
+    if dispatch(op, None, keys, vals) == "cuda":
+        # Imported here: kernels.merge imports this module.
+        from repro_torch.kernels import merge as km
+
+        if keys.shape[1] * keys.shape[2] <= km.KWAY_TILE:
+            return km.merge_kway_tile_groups(keys, vals)
+        announce(op, "torch", "shape", keys.device)
+    return merge_runs_plain(keys, vals)
 
 
 def _padded_pow2(n: int) -> int:

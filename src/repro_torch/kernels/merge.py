@@ -35,6 +35,7 @@ import torch
 from repro_torch.core.corank import co_rank_batch
 from repro_torch.core.engine import SIDE_STRICT, SIDE_TIES
 from repro_torch.core.kway import co_rank_kway_batch
+from repro_torch.core.mergesort import merge_runs_plain
 from repro_torch.kernels import _build
 
 __all__ = [
@@ -44,6 +45,8 @@ __all__ = [
     "merge_kway_tile",
     "merge_kway_tile_plain",
     "merge_kway_tiled",
+    "merge_kway_tile_groups",
+    "merge_kway_groups_plain",
     "tile_bounds",
     "MERGE_TILE",
     "KWAY_TILE",
@@ -80,6 +83,14 @@ def _merge_tile_fn():
 def _merge_kway_tile_fn():
     fn = _build.load("merge_kway_tile").merge_kway_tile_launch
     fn.argtypes = [_I, _I, _I, _I, _P, _P, _L, _P, _P, _P, _L, _L, _P]
+    fn.restype = _I
+    return fn
+
+
+@functools.cache
+def _merge_kway_groups_fn():
+    fn = _build.load("merge_kway_tile").merge_kway_groups_launch
+    fn.argtypes = [_I, _I, _I, _I, _I, _L, _I, _P, _P, _P, _P, _P]
     fn.restype = _I
     return fn
 
@@ -373,3 +384,59 @@ def merge_kway_tiled(runs, vals=None, *, lengths=None,
     return merge_kway_tile(runs, cb,
                            vals=None if vals is None else vals.contiguous(),
                            out_len=total)
+
+
+# ---------------------------------------------------------------------------
+# k-way, grouped: merge_kway_tile_groups
+# ---------------------------------------------------------------------------
+
+
+#: Plain version of :func:`merge_kway_tile_groups`: the core's rank merge.
+merge_kway_groups_plain = merge_runs_plain
+
+
+def merge_kway_tile_groups(keys, vals=None):
+    """Merge ``g`` independent groups of ``k`` sorted runs in one launch:
+    ``keys`` ``(g, k, w)`` with every ``keys[i, q]`` sorted -> ``(g, k*w)``
+    stably merged (lower ``q`` wins ties); ``vals`` (same shape, any 4- or
+    8-byte dtype) follows the same permutation.  Returns ``(keys, vals)``,
+    ``vals`` ``None`` without a payload.
+
+    The grouped launch of ``csrc/merge_kway_tile.cu``: a group must fit one
+    tile (``k*w <= KWAY_TILE``), so its cuts are trivial and there is no
+    phase 1; each CUDA block packs ``KWAY_TILE // (k*w)`` whole groups.
+    """
+    op = "merge_kway_tile_groups"
+    on_cpu = _on_cpu(keys, vals)
+    _check(keys.dim() == 3, op, f"keys must be (g, k, w), got {tuple(keys.shape)}")
+    g, k, w = keys.shape
+    _check(keys.dtype in _KWAY_DTYPES, op,
+           f"keys must be one of {list(_KWAY_DTYPES)}, got {keys.dtype}")
+    _check(k >= 1 and w >= 1 and k * w <= KWAY_TILE, op,
+           f"a group of k*w = {k}*{w} must fit one tile of {KWAY_TILE}")
+    _check(keys.is_contiguous(), op, "keys must be contiguous")
+    if vals is not None:
+        _check(vals.shape == keys.shape and vals.is_contiguous()
+               and vals.element_size() in (4, 8), op,
+               "payload must be a contiguous 4- or 8-byte tensor shaped like keys")
+    if on_cpu:
+        return merge_kway_groups_plain(keys, vals)
+    out_k = torch.empty((g, k * w), dtype=keys.dtype, device=keys.device)
+    out_v = None if vals is None else torch.empty(
+        (g, k * w), dtype=vals.dtype, device=vals.device)
+    if g > 0:
+        with torch.cuda.device(keys.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = _merge_kway_groups_fn()(
+                _KWAY_DTYPES[keys.dtype],
+                0 if vals is None else vals.element_size(), KWAY_TILE, k, w,
+                g, KWAY_TILE // (k * w), keys.data_ptr(),
+                None if vals is None else vals.data_ptr(), out_k.data_ptr(),
+                None if out_v is None else out_v.data_ptr(), stream,
+            )
+        _raise_on_error(op, err)
+        merge_kway_tile_groups.launches += 1
+    return out_k, out_v
+
+
+merge_kway_tile_groups.launches = 0

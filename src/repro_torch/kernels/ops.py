@@ -11,7 +11,7 @@ Port of ``repro.kernels.ops``.  Backends:
 
 ``backend=None`` resolves through ``REPRO_TORCH_MERGE_BACKEND`` (one of the
 three names, or ``auto``); ``auto`` picks ``cuda`` for CUDA tensors and
-``torch`` for CPU tensors.  The port reads its own variable, not
+``torch`` for CPU tensors (the policy lives in ``repro_torch.backend``).  The port reads its own variable, not
 ``REPRO_MERGE_BACKEND``, so one process can drive both packages.  A bad
 name raises, and asking for ``cuda`` with a CPU tensor raises: there is no
 silent fallback.
@@ -22,11 +22,15 @@ through :func:`merge_window`, under the same policy.
 
 from __future__ import annotations
 
-import os
-
 import torch
 
 from repro_torch import obs
+from repro_torch.backend import (
+    BACKEND_ENV_VAR,
+    VALID_BACKENDS,
+    default_backend,
+    dispatch,
+)
 from repro_torch.core.kway import merge_kway_ranked
 from repro_torch.core.mergesort import merge_sort
 from repro_torch.kernels import ref
@@ -42,66 +46,6 @@ __all__ = [
     "VALID_BACKENDS",
 ]
 
-BACKEND_ENV_VAR = "REPRO_TORCH_MERGE_BACKEND"
-VALID_BACKENDS = ("cuda", "torch", "torch_native")
-
-# (op, backend, source) triples already announced — the dispatch choice is
-# logged once per distinct selection, not once per call.
-_LOGGED_CHOICES: set = set()
-
-
-def default_backend(device: torch.device | str = "cpu") -> str:
-    """``cuda`` for CUDA tensors, ``torch`` elsewhere;
-    ``REPRO_TORCH_MERGE_BACKEND`` overrides."""
-    env = os.environ.get(BACKEND_ENV_VAR, "auto").strip().lower()
-    if env in VALID_BACKENDS:
-        return env
-    if env not in ("", "auto"):
-        raise ValueError(
-            f"{BACKEND_ENV_VAR} must be 'cuda', 'torch', 'torch_native' or "
-            f"'auto', got {env!r}"
-        )
-    return "cuda" if torch.device(device).type == "cuda" else "torch"
-
-
-def _dispatch(op: str, backend: str | None, *tensors) -> str:
-    """Resolve and validate the backend for ``tensors``; announce it once.
-
-    An explicit ``backend=`` typo fails loudly; ``cuda`` on a tensor that
-    is not on the card fails too (the counterpart of the reference's
-    ``_resolve_interpret``, which refuses compiled Pallas off the TPU).
-    """
-    device = tensors[0].device
-    if backend is None:
-        resolved = default_backend(device)
-        env = os.environ.get(BACKEND_ENV_VAR, "").strip().lower()
-        source = "env" if env in VALID_BACKENDS else "auto"
-    else:
-        if backend not in VALID_BACKENDS:
-            raise ValueError(
-                f"{op}: backend must be one of {VALID_BACKENDS}, "
-                f"got {backend!r}"
-            )
-        resolved = backend
-        source = "arg"
-    if resolved == "cuda":
-        for t in tensors:
-            if t is not None and t.device.type != "cuda":
-                raise ValueError(
-                    f"{op}: backend 'cuda' needs CUDA tensors, got one on "
-                    f"{t.device} — move it to the card or use backend='torch'"
-                )
-    key = (op, resolved, source)
-    if key not in _LOGGED_CHOICES:
-        _LOGGED_CHOICES.add(key)
-        obs.log_event(
-            "kernels.backend_selected", op=op, backend=resolved,
-            source=source, device=str(device),
-        )
-    if obs.enabled():
-        obs.counter("kernels.dispatch_calls", 1, op=op, backend=resolved)
-    return resolved
-
 
 def stable_merge(
     a: torch.Tensor,
@@ -114,7 +58,7 @@ def stable_merge(
     backend: 'cuda' (the ``merge_tile`` kernel), 'torch' / 'torch_native'
     (rank merge via ``searchsorted``), or None = auto.
     """
-    backend = _dispatch("stable_merge", backend, a, b)
+    backend = dispatch("stable_merge", backend, a, b)
     with obs.span("repro.stable_merge"):
         if backend == "cuda":
             return merge_tiled(a, b)
@@ -131,7 +75,7 @@ def stable_merge_kway(
     backend: 'cuda' (the one-pass ``merge_kway_tile`` kernel) or 'torch' /
     'torch_native' (the k-way rank merge), None = auto.
     """
-    backend = _dispatch("stable_merge_kway", backend, runs)
+    backend = dispatch("stable_merge_kway", backend, runs)
     with obs.span("repro.stable_merge_kway"):
         if backend == "cuda":
             return merge_kway_tiled(runs)
@@ -154,7 +98,7 @@ def merge_window(
     with ``lengths``, positions ``>= lengths.sum()`` are backend-dependent
     filler — callers slice to the real count.
     """
-    backend = _dispatch("merge_window", backend, runs, vals, lengths)
+    backend = dispatch("merge_window", backend, runs, vals, lengths)
     k, w = runs.shape
     total = k * w if out_len is None else out_len
     with obs.span("repro.merge_window"):
@@ -166,7 +110,7 @@ def merge_window(
 def stable_sort(x: torch.Tensor, *, backend: str | None = None) -> torch.Tensor:
     """Stable 1-D sort: merge sort on the co-rank primitive (torch ops on
     every backend but ``torch_native``, which is ``torch.sort``)."""
-    backend = _dispatch("stable_sort", backend, x)
+    backend = dispatch("stable_sort", backend, x)
     with obs.span("repro.stable_sort"):
         if backend == "torch_native":
             return torch.sort(x, stable=True).values

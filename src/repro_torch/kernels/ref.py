@@ -7,7 +7,7 @@ import torch
 
 from repro_torch.core.engine import SIDE_STRICT, SIDE_TIES
 
-__all__ = ["merge_ref", "merge_np", "sort_ref"]
+__all__ = ["merge_ref", "merge_np", "sort_ref", "topk_ref"]
 
 
 def merge_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -38,3 +38,15 @@ def merge_np(a: np.ndarray, b: np.ndarray) -> np.ndarray:
 
 def sort_ref(x: torch.Tensor) -> torch.Tensor:
     return torch.sort(x, stable=True).values
+
+
+def topk_ref(x: torch.Tensor, k: int):
+    """Top-k oracle of a 1-D tensor: a stable descending argsort, cut to
+    ``k`` -- ``(values, int32 indices)``, equal values in index order.
+
+    ``x + 0`` folds ``-0.0`` into ``+0.0`` before the sort, so the two
+    zeros tie as they do in the reference's comparison sort (a radix sort,
+    as ``torch.sort`` runs on the card, would order them apart).
+    """
+    order = torch.argsort(-(x + 0), stable=True)[:k]
+    return x[order], order.to(torch.int32)

@@ -36,6 +36,8 @@ def fresh_import():
         "import repro_torch.core, repro_torch.kernels.ops, "
         "repro_torch.external, repro_torch.obs\n"
         "import repro_torch.kernels.merge, repro_torch.kernels._build as b\n"
+        "import repro_torch.serving, repro_torch.launch.serve, "
+        "repro_torch.models.convert, repro_torch.configs.registry\n"
         "bad = sorted(m for m, mod in sys.modules.items() if mod is not None "
         "and (m in ('jax', 'repro') or m.startswith(('jax.', 'repro.'))))\n"
         "print('foreign', bad)\n"

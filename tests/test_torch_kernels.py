@@ -396,3 +396,71 @@ def test_on_cpu_refuses_mixed_or_foreign_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         km.merge_tile(*(torch.empty(1, device="meta") for _ in range(4)))
     assert km._on_cpu(torch.zeros(1), None, torch.zeros(2))
+
+
+# --- the grouped launch of merge_kway_tile ---------------------------------------
+
+
+def _groups(g, k, w, seed):
+    """(g, k, w) sorted float32 runs, duplicate-heavy with +-inf and +-0.0,
+    and an int32 payload numbering the elements."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(-8, 8, (g, k, w)).astype(np.float32)
+    u = rng.random((g, k, w))
+    keys[u < 0.05] = np.inf
+    keys[(u >= 0.05) & (u < 0.1)] = -np.inf
+    keys[(u >= 0.1) & (u < 0.2)] = -0.0
+    keys = np.sort(keys, axis=-1, kind="stable")
+    vals = np.arange(g * k * w, dtype=np.int32).reshape(g, k, w)
+    return keys, vals
+
+
+@pytest.mark.parametrize("g,k,w", [(96, 4, 1), (48, 4, 4), (24, 4, 16),
+                                   (12, 2, 64), (20, 4, 50), (8, 2, 50),
+                                   (6, 3, 50), (5, 16, 7)])
+def test_grouped_merge_matches_reference_merge_runs_ranked(g, k, w):
+    """The top-k's grouped merges (block-sort passes, tournament rounds,
+    a tail group of 3) on the CPU: the wrapper's plain version and the
+    port's merge_runs_ranked against the reference's, keys as bits."""
+    import jax
+
+    from repro.core.mergesort import merge_runs_ranked as ref_merge
+    from repro_torch.core.mergesort import merge_runs_ranked
+
+    keys, vals = _groups(g, k, w, g * k + w)
+    rk, rv = jax.jit(ref_merge)(jnp.asarray(keys), jnp.asarray(vals))
+    for gk, gv in (km.merge_kway_tile_groups(torch.from_numpy(keys),
+                                             torch.from_numpy(vals)),
+                   merge_runs_ranked(torch.from_numpy(keys),
+                                     torch.from_numpy(vals))):
+        np.testing.assert_array_equal(gk.numpy().view(np.int32),
+                                      np.asarray(rk).view(np.int32))
+        np.testing.assert_array_equal(gv.numpy(), np.asarray(rv))
+
+
+def test_grouped_wrapper_checks_on_cpu():
+    keys = torch.zeros((2, 4, 8), dtype=torch.int32)
+    wide = torch.zeros((1, 4, km.KWAY_TILE // 4 + 1), dtype=torch.int32)
+    with pytest.raises(ValueError, match="must fit one tile"):
+        km.merge_kway_tile_groups(wide)
+    with pytest.raises(ValueError, match="keys must be one of"):
+        km.merge_kway_tile_groups(keys.short())
+    with pytest.raises(ValueError, match="payload"):
+        km.merge_kway_tile_groups(keys, keys.short())
+    with pytest.raises(ValueError, match="contiguous"):
+        km.merge_kway_tile_groups(keys.transpose(1, 2))
+    with pytest.raises(ValueError, match=r"\(g, k, w\)"):
+        km.merge_kway_tile_groups(keys[0])
+    before = km.merge_kway_tile_groups.launches
+    km.merge_kway_tile_groups(keys, keys)  # CPU: the plain version
+    assert km.merge_kway_tile_groups.launches == before
+
+
+def test_merge_runs_ranked_cuda_backend_on_cpu_raises(monkeypatch):
+    from repro_torch.core.mergesort import merge_runs_ranked
+    from repro_torch.kernels import ops
+
+    keys = torch.zeros((2, 4, 8), dtype=torch.int32)
+    monkeypatch.setenv(ops.BACKEND_ENV_VAR, "cuda")
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        merge_runs_ranked(keys, None)

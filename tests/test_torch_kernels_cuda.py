@@ -275,3 +275,128 @@ def test_merge_kway_tile_wide_keys_wide_payload_on_card(cuda_device, k,
     lengths[1] = 0
     _kway_both(runs, vals, lengths)
     _kway_both(runs, vals)
+
+
+# --- the grouped launch of merge_kway_tile --------------------------------------
+
+#: (g, k, w) of every merge of one top-k of qwen3-0.6b's 16 x 151936 logits
+#: at k = 50, block 128, fanout 4: the four block-sort passes, then the six
+#: tournament rounds.
+TOPK_GROUPS = [(607744, 4, 1), (151936, 4, 4), (37984, 4, 16), (18992, 2, 64),
+               (4752, 4, 50), (1200, 4, 50), (304, 4, 50), (80, 4, 50),
+               (32, 4, 50), (16, 2, 50)]
+
+
+def _sorted_groups(shape, dtype, device, seed):
+    """(g, k, w) groups of sorted duplicate-heavy runs with +-0.0 and
+    +-inf among float keys."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randint(-40, 40, shape, generator=g, device=device).to(dtype)
+    if dtype.is_floating_point:
+        u = torch.rand(shape, generator=g, device=device)
+        for lo, v in ((0.0, float("inf")), (0.02, float("-inf")),
+                      (0.04, 0.0), (0.06, -0.0)):
+            x[(u >= lo) & (u < lo + 0.02)] = v
+    return torch.sort(x, dim=-1, stable=True).values
+
+
+def _groups_both(keys, vals):
+    before = km.merge_kway_tile_groups.launches
+    got = km.merge_kway_tile_groups(keys, vals)
+    assert km.merge_kway_tile_groups.launches == before + 1
+    want = km.merge_kway_groups_plain(keys, vals)
+    for x, y in zip(got, want):
+        if x is not None:
+            assert torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+    # Against a stable sort of each group's elements (ties to lower run).
+    gk = keys.reshape(keys.shape[0], -1)
+    order = torch.sort(gk + 0 if gk.is_floating_point() else gk, dim=1,
+                       stable=True).indices
+    assert torch.equal(got[0], torch.gather(gk, 1, order))
+    if vals is not None:
+        assert torch.equal(got[1], torch.gather(
+            vals.reshape(vals.shape[0], -1), 1, order))
+
+
+@pytest.mark.parametrize("g,k,w", TOPK_GROUPS)
+def test_grouped_launch_matches_plain_at_topk_shapes_on_card(cuda_device, g,
+                                                             k, w):
+    keys = _sorted_groups((g, k, w), torch.float32, cuda_device, g)
+    vals = torch.arange(g * k * w, device=cuda_device,
+                        dtype=torch.int32).reshape(g, k, w)
+    _groups_both(keys, vals)
+
+
+@pytest.mark.parametrize("g,k,w", [(1000, 3, 50), (777, 5, 7), (300, 7, 100),
+                                   (50, 3, 1280), (9, 1, 3840), (1, 3840, 1),
+                                   (4000, 6, 1), (123, 11, 13)])
+def test_grouped_launch_any_k_and_unaligned_tiles_on_card(cuda_device, g, k,
+                                                          w):
+    """k not a power of two; group sizes whose tiles start off a 16-byte
+    boundary; one group filling a tile; k up to the tile."""
+    keys = _sorted_groups((g, k, w), torch.float32, cuda_device, k * w)
+    vals = torch.arange(g * k * w, device=cuda_device,
+                        dtype=torch.int32).reshape(g, k, w)
+    _groups_both(keys, vals)
+    _groups_both(keys, None)
+
+
+@pytest.mark.parametrize("val_dtype", [None, torch.int32, torch.int64])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32,
+                                   torch.bfloat16])
+def test_grouped_launch_dtypes_on_card(cuda_device, dtype, val_dtype):
+    g, k, w = 2000, 4, 50
+    keys = _sorted_groups((g, k, w), dtype, cuda_device, 5)
+    vals = None if val_dtype is None else (torch.arange(
+        g * k * w, device=cuda_device) * 7 - 3).to(val_dtype).reshape(g, k, w)
+    _groups_both(keys, vals)
+
+
+def test_merge_runs_ranked_routes_by_shape_on_card(cuda_device):
+    """Groups that fit a tile go to the grouped launch, which raises for
+    key dtypes it does not take; wider groups keep the torch-ops rank
+    merge."""
+    from repro_torch.core.mergesort import (
+        merge_runs_plain,
+        merge_runs_ranked,
+        merge_sort,
+    )
+
+    keys = _sorted_groups((64, 4, 50), torch.float32, cuda_device, 1)
+    km.merge_kway_tile_groups.launches = 0
+    got, _ = merge_runs_ranked(keys, None)
+    assert km.merge_kway_tile_groups.launches == 1
+    assert torch.equal(got, km.merge_kway_groups_plain(keys)[0])
+    wide = _sorted_groups((2, 4, 1000), torch.float32, cuda_device, 2)
+    got, _ = merge_runs_ranked(wide, None)
+    assert km.merge_kway_tile_groups.launches == 1
+    assert torch.equal(got, merge_runs_plain(wide, None)[0])
+    small = _sorted_groups((8, 4, 8), torch.int32, cuda_device, 3).short()
+    with pytest.raises(ValueError, match="keys must be one of"):
+        merge_runs_ranked(small, None)
+    assert km.merge_kway_tile_groups.launches == 1
+    x = torch.randint(0, 100, (100_003,), device=cuda_device,
+                      dtype=torch.int32)
+    assert torch.equal(merge_sort(x), torch.sort(x, stable=True).values)
+    assert km.merge_kway_tile_groups.launches == 1 + 5  # widths 1..256
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_topk_on_card_matches_cpu_and_sort(cuda_device, dtype):
+    from repro_torch.core.topk import merge_topk_batch
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randint(-30, 30, (16, 151936), generator=g,
+                      device=cuda_device).float()
+    x[:, 5::97] = float("inf")
+    x[:, 7::89] = float("-inf")
+    x[:, 11::13] = -0.0
+    x = x.to(dtype)
+    km.merge_kway_tile_groups.launches = 0
+    vals, idx = merge_topk_batch(x, 50, fanout=4)
+    assert km.merge_kway_tile_groups.launches == 10
+    cv, ci = merge_topk_batch(x.cpu(), 50, fanout=4)
+    assert torch.equal(idx.cpu(), ci)
+    assert torch.equal(vals.cpu().view(torch.int16), cv.view(torch.int16))
+    order = torch.sort(-(x.float() + 0.0), dim=1, stable=True).indices[:, :50]
+    assert torch.equal(idx.long(), order)
