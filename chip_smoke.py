@@ -36,7 +36,24 @@ full data size through the entry points a user calls:
                    a seeded generator): 32 requests with staggered arrivals,
                    served with the ``topk`` sampler on the ``cuda`` merge
                    backend (the main path), again on ``torch`` (every token
-                   stream must be equal), and with ``greedy``.
+                   stream must be equal), and with ``greedy``;
+7. moe           — ``moe_dispatch_dropless`` of 32,768 assignments (dbrx:
+                   8192 tokens x top-4 of 16 experts; deepseek-v3: 4096 x
+                   top-8 of 256), uniform and one-hot-skewed, bit for bit
+                   against the ``torch`` backend and ``torch.sort(stable=
+                   True)``, with every grouped launch of the dispatch sort
+                   and of the router's top-k held against its plain
+                   version; then dbrx-132b (4 layers, bf16 storage) and
+                   deepseek-v3-671b (5 layers: the 3 dense ones and 2 MoE)
+                   at full width, random weights: one MoE layer on 64
+                   bf16 tokens (dropless against the dense reference,
+                   capacity at factor E/k against dropless, relative L2
+                   error at most 1e-2), dbrx served by ``DecodeEngine`` (8
+                   slots, 16 requests, dropless) and deepseek-v3 by the
+                   lock-step loop (batch 4, 32-token prompt, 32 new
+                   tokens), each with ``topk`` on both merge backends
+                   (equal streams) and ``greedy``, whose grouped launches
+                   come from the MoE layers alone and must be above 0.
 
 Every phase sets the kernels' launch counters to 0 just before its main
 path and reads them just after; it holds each kernel's output against the
@@ -96,6 +113,13 @@ KWAY_SRC = "src/repro_torch/kernels/csrc/merge_kway_tile.cu"
 MERGE_TPU = "src/repro/kernels/merge.py:57"
 KWAY_TPU = "src/repro/kernels/merge.py:235"
 KERNELS = ("merge_tile", "merge_kway_tile", "merge_kway_tile_groups")
+# Phase moe: each model at its published widths, depth cut to fit one 80 GB
+# card beside the phase's other tensors (PERF.md, section 4).
+MOE_MODELS = (("dbrx-132b", {"n_layers": 4, "param_dtype": "bfloat16"}),
+              ("deepseek-v3-671b", {"n_layers": 5}))
+# (name, tokens, top-k, experts, router scoring): 32,768 assignments each
+MOE_DISPATCH = (("dbrx", 8192, 4, 16, "softmax"),
+                ("deepseek-v3", 4096, 8, 256, "sigmoid"))
 
 
 def log(msg: str) -> None:
@@ -242,12 +266,15 @@ class Smoke:
             fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
-        kernels = {}
+        kernels, self.host_calls = {}, {}
         for e in prof.key_averages():
             dev = getattr(e, "self_device_time_total",
                           getattr(e, "self_cuda_time_total", 0))
             if dev > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
                 kernels[e.key] = (e.count, dev / 1e3)
+            elif e.key.startswith("cuda") and e.count:
+                # the host's CUDA runtime calls: launches, copies, syncs
+                self.host_calls[e.key] = (e.count, e.self_cpu_time_total / 1e3)
         busy = sum(ms for _, ms in kernels.values())
         return wall, (busy if busy > 0 else None), kernels
 
@@ -592,21 +619,6 @@ class Smoke:
                 raise AssertionError(f"batched_topk {kind}: {launched} launches, "
                                      f"{bad} + {bad_oracle} mismatches")
 
-        # Every grouped launch of one float32 top-k, at its own shape.
-        seen = []
-        real = km.merge_kway_tile_groups
-
-        def capture(keys, vals=None):
-            seen.append((keys.clone(), None if vals is None else vals.clone()))
-            return real(keys, vals)
-
-        capture.launches = 0  # the wrapper counts on the name it is bound to
-        km.merge_kway_tile_groups = capture
-        try:
-            with backend_env(ops, "cuda"):
-                batched_topk(x32, k, fanout=fanout)
-        finally:
-            km.merge_kway_tile_groups = real
         # Device time of the grouped launches of one top-k, by the profiler:
         # the event times below include the host's launch of each call.
         with backend_env(ops, "cuda"):
@@ -620,12 +632,50 @@ class Smoke:
             f"{sum(ms for _, ms in grouped):.4f} ms on the device")
         for name, (c, ms) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:6]:
             log(f"    {ms:.4f} ms in {c} launches: {name[:90]}")
-        for step, (keys, vals) in enumerate(seen):
+        # Every grouped launch of one float32 top-k, at its own shape.
+        self.record_grouped(
+            lambda: batched_topk(x32, k, fanout=fanout),
+            lambda g, kk, w: f"topk {'round' if w == k else 'block sort'} "
+                             f"({g},{kk},{w})")
+
+    def record_grouped(self, fn, case) -> None:
+        """Run ``fn`` once on the ``cuda`` backend, capturing the inputs of
+        each grouped launch it makes; then hold every launch against the
+        plain version on the same inputs.  The launches of one shape and
+        dtype make one record, named ``case(g, k, w)`` and the dtypes, with
+        their summed mismatches (``checked`` launches) and the first one's
+        device time (profiler), call time (events), plain time and
+        ``torch.sort`` time of the same groups."""
+        torch, km, ops = self.torch, self.km, self.ops
+        seen = []
+        real = km.merge_kway_tile_groups
+
+        def capture(keys, vals=None):
+            seen.append((keys.clone(), None if vals is None else vals.clone()))
+            return real(keys, vals)
+
+        capture.launches = 0  # the wrapper counts on the name it is bound to
+        km.merge_kway_tile_groups = capture
+        try:
+            with backend_env(ops, "cuda"):
+                fn()
+        finally:
+            km.merge_kway_tile_groups = real
+        by_case = {}
+        for keys, vals in seen:
+            name = (f"{case(*keys.shape)} {str(keys.dtype)[6:]}+"
+                    f"{str(vals.dtype)[6:]}")
+            by_case.setdefault(name, []).append((keys, vals))
+        for name, launches in by_case.items():
+            mismatches, err = 0, 0.0
+            for keys, vals in launches:
+                got = real(keys, vals)
+                want = km.merge_kway_groups_plain(keys, vals)
+                mm_k, err_k = self.mismatch(got[0], want[0])
+                mm_v, _ = self.mismatch(got[1], want[1])
+                mismatches, err = mismatches + mm_k + mm_v, max(err, err_k)
+            keys, vals = launches[0]
             g, kk, w = keys.shape
-            got = real(keys, vals)
-            want = km.merge_kway_groups_plain(keys, vals)
-            mm_k, err_k = self.mismatch(got[0], want[0])
-            mm_v, _ = self.mismatch(got[1], want[1])
             flat = keys.reshape(g, kk * w)
             elems = g * kk * w
             # A launch takes microseconds, less than the host takes to issue
@@ -634,9 +684,8 @@ class Smoke:
             call_ms = self.timed_ms(lambda: real(keys, vals), 50)
             device_ms = self.kernel_device_ms(lambda: real(keys, vals))
             self.record(
-                "merge_kway_tile_groups",
-                f"topk {'round' if w == k else 'block sort'} ({g},{kk},{w}) float32+int32",
-                mismatches=mm_k + mm_v, max_abs_err=err_k,
+                "merge_kway_tile_groups", name,
+                mismatches=mismatches, max_abs_err=err,
                 ms=call_ms if device_ms is None else device_ms,
                 plain_ms=self.timed_ms(lambda: km.merge_kway_groups_plain(keys, vals), 10),
                 library_ms=self.timed_ms(lambda: torch.sort(flat, dim=1, stable=True), 20),
@@ -644,6 +693,7 @@ class Smoke:
                 ops=elems * max(1, (kk - 1).bit_length()),
                 call_ms=call_ms,
                 device_ms=device_ms,
+                checked=len(launches),
             )
 
     def serve_engine(self) -> None:
@@ -651,107 +701,14 @@ class Smoke:
         torch merge backends (equal streams), then greedy."""
         import dataclasses
 
-        import numpy as np
         from repro_torch.configs.registry import ARCHS
         from repro_torch.models import transformer as tm
-        from repro_torch.serving import DecodeEngine, Request
 
-        torch, ops = self.torch, self.ops
+        torch = self.torch
         cfg = ARCHS["qwen3-0.6b"]
         gen = torch.Generator(device=self.dev).manual_seed(20131303)
         params = tm.init_params(cfg, gen, device=self.dev)
-        n_params = sum(t.numel() for t in _leaves(params))
-        rng = np.random.default_rng(20131303)
-        n_req, every = 32 >> min(self.cut, 4), 2
-        reqs = [(i * every, i, rng.integers(1, cfg.vocab, int(rng.integers(32, 129)),
-                                            dtype=np.int32),
-                 int(rng.integers(32, 65))) for i in range(n_req)]
-        log(f"phase serve: DecodeEngine {cfg.name} ({n_params / 1e9:.3f} B params, "
-            f"{cfg.n_layers} layers, d {cfg.d_model}, vocab {cfg.vocab}, "
-            f"{cfg.dtype}), {cfg.max_batch} slots, max_len 1024, {n_req} "
-            f"requests arriving every {every} steps")
-
-        class Timed(DecodeEngine):
-            """Records CUDA events around the two device stages of a step."""
-
-            def _decode(self, tokens, active):
-                self.ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-                self.ev[0].record()
-                out = super()._decode(tokens, active)
-                self.ev[1].record()
-                return out
-
-            def _sample(self, keys, logits):
-                out = super()._sample(keys, logits)
-                self.ev[2].record()
-                self.events.append(self.ev)
-                return out
-
-        def serve(sampler: str, backend: str, reqs=reqs):
-            eng = Timed(cfg, params, max_len=1024, sampler=sampler, top_k=50,
-                        seed=7, device=self.dev)
-            eng.events = []
-            arrivals = [(t, Request(rid, prompt, new)) for t, rid, prompt, new in reqs]
-            with backend_env(ops, backend):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                out = eng.run(arrivals=arrivals)
-                torch.cuda.synchronize()
-                secs = time.perf_counter() - t0
-            eng.scheduler.check_invariants()
-            eng.pool.check_invariants()
-            steps = [(e0.elapsed_time(e1), e1.elapsed_time(e2)) for e0, e1, e2 in eng.events]
-            return out, eng.steps, secs, steps
-
-        serve("topk", "cuda", reqs[:2])  # warm-up: cuBLAS, allocator
-        self.reset()
-        got, steps, secs, times = serve("topk", "cuda")
-        launched = self.read_launches()
-        plain, *_ = serve("topk", "torch")
-        greedy, g_steps, g_secs, g_times = serve("greedy", "cuda")
-        tokens = sum(len(t) for t in got.values())
-        differ = [rid for rid in got if got[rid] != plain.get(rid)]
-        for label, res, st, sec, tm_ in (("topk", got, steps, secs, times),
-                                         ("greedy", greedy, g_steps, g_secs, g_times)):
-            step_ms = [a + b for a, b in tm_]
-            q = statistics.quantiles(step_ms, n=10)
-            log(f"  serve {label}: {len(res)} requests, "
-                f"{sum(len(t) for t in res.values())} tokens, {st} steps, "
-                f"{sec:.3f} s wall, {sum(len(t) for t in res.values()) / sec:.1f} tok/s; "
-                f"step median {statistics.median(step_ms):.3f} ms, "
-                f"p90 {q[-1]:.3f} ms (CUDA events: decode + sample); "
-                f"sampler share {sum(b for _, b in tm_) / sum(step_ms):.3f}, "
-                f"sampler median {statistics.median(b for _, b in tm_):.3f} ms")
-        log(f"  serve topk main path: merge_kway_tile_groups launches "
-            f"{launched['merge_kway_tile_groups']}; {len(differ)} of {len(got)} "
-            f"token streams differ between the cuda and torch merge backends")
-        bad_tok = [rid for res in (got, greedy) for rid, t in res.items()
-                   if not all(0 <= v < cfg.vocab for v in t)]
-        if launched["merge_kway_tile_groups"] == 0 or differ or bad_tok \
-                or len(got) != n_req or tokens != sum(r[3] for r in reqs):
-            raise AssertionError(
-                f"serve: launches {launched}, streams differ {differ}, "
-                f"tokens out of range {bad_tok}, {len(got)} requests served")
-
-        # Device busy share of five steady steps with every slot decoding.
-        eng = DecodeEngine(cfg, params, max_len=1024, sampler="topk", top_k=50,
-                           seed=7, device=self.dev)
-        for rid, (_, _, prompt, _) in enumerate(reqs[:cfg.max_batch]):
-            eng.submit(Request(rid, prompt[:32], 64))
-        with backend_env(ops, "cuda"):
-            for _ in range(40):
-                eng.step()
-            wall, busy, kernels = self.device_profile(
-                lambda: [eng.step() for _ in range(5)])
-        launches = sum(c for c, _ in kernels.values())
-        log(f"  profile of 5 decode steps ({cfg.max_batch} slots busy): wall {wall:.3f} ms, "
-            f"device {'not measured' if busy is None else f'{busy:.3f} ms'}"
-            + ("" if busy is None else f", busy share {busy / wall:.3f}, "
-               f"idle share {1 - busy / wall:.3f}")
-            + f", {launches / 5:.0f} kernel launches per step")
-        for name, (c, ms) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]:
-            log(f"    {ms / 5:.4f} ms/step in {c // 5} launches/step: {name[:90]}")
-        del eng
+        self.serve_runs(cfg, params, 32 >> min(self.cut, 4), "serve")
 
         # One bf16 decode step against a float32 one of the same weights.
         cfg32 = dataclasses.replace(cfg, dtype="float32")
@@ -777,6 +734,368 @@ class Smoke:
             f"{float((lo.argmax(1) == hi.argmax(1)).float().mean()):.3f}")
         if not finite or not rel < 0.1 or lo.shape != (b, cfg.vocab):
             raise AssertionError(f"decode logits: relative error {rel}, finite {finite}")
+
+    def serve_runs(self, cfg, params, n_req: int, phase: str, *,
+                   greedy_launches: bool = False) -> None:
+        """``DecodeEngine`` on ``cfg``: ``n_req`` requests (prompts 32-128
+        tokens, 32-64 new, one arrival every 2 steps) into
+        ``cfg.max_batch`` slots of max_len 1024, served with ``topk`` on the
+        ``cuda`` merge backend (the main path: its grouped launches counted)
+        and on ``torch`` (every stream must be equal), then with ``greedy``
+        (its launches counted too, and required when ``greedy_launches``);
+        then a profile of five steady steps with every slot busy.  Any
+        non-finite logit fails."""
+        import numpy as np
+        from repro_torch.serving import DecodeEngine, Request
+
+        torch, ops = self.torch, self.ops
+        n_params = sum(t.numel() for t in _leaves(params))
+        rng = np.random.default_rng(20131303)
+        every = 2
+        reqs = [(i * every, i, rng.integers(1, cfg.vocab, int(rng.integers(32, 129)),
+                                            dtype=np.int32),
+                 int(rng.integers(32, 65))) for i in range(n_req)]
+        log(f"phase {phase}: DecodeEngine {cfg.name} ({n_params / 1e9:.3f} B params, "
+            f"{cfg.n_layers} layers, d {cfg.d_model}, vocab {cfg.vocab}, "
+            f"{cfg.dtype}), {cfg.max_batch} slots, max_len 1024, {n_req} "
+            f"requests arriving every {every} steps")
+
+        class Timed(DecodeEngine):
+            """Records CUDA events around the two device stages of a step
+            and whether every logit stayed finite."""
+
+            def _decode(self, tokens, active):
+                self.ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+                self.ev[0].record()
+                out = super()._decode(tokens, active)
+                self.ev[1].record()
+                self.finite &= torch.isfinite(out).all()
+                return out
+
+            def _sample(self, keys, logits):
+                out = super()._sample(keys, logits)
+                self.ev[2].record()
+                self.events.append(self.ev)
+                return out
+
+        def serve(sampler: str, backend: str, reqs=reqs):
+            eng = Timed(cfg, params, max_len=1024, sampler=sampler, top_k=50,
+                        seed=7, device=self.dev)
+            eng.events = []
+            eng.finite = torch.ones((), dtype=torch.bool, device=self.dev)
+            arrivals = [(t, Request(rid, prompt, new)) for t, rid, prompt, new in reqs]
+            with backend_env(ops, backend):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = eng.run(arrivals=arrivals)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+            eng.scheduler.check_invariants()
+            eng.pool.check_invariants()
+            if not bool(eng.finite):
+                raise AssertionError(f"{phase} {sampler}/{backend}: non-finite logits")
+            steps = [(e0.elapsed_time(e1), e1.elapsed_time(e2)) for e0, e1, e2 in eng.events]
+            return out, eng.steps, secs, steps
+
+        serve("topk", "cuda", reqs[:2])  # warm-up: cuBLAS, allocator
+        self.reset()
+        got, steps, secs, times = serve("topk", "cuda")
+        launched = self.read_launches()
+        plain, *_ = serve("topk", "torch")
+        self.reset()
+        greedy, g_steps, g_secs, g_times = serve("greedy", "cuda")
+        g_launched = self.read_launches()
+        tokens = sum(len(t) for t in got.values())
+        differ = [rid for rid in got if got[rid] != plain.get(rid)]
+        for label, res, st, sec, tm_ in (("topk", got, steps, secs, times),
+                                         ("greedy", greedy, g_steps, g_secs, g_times)):
+            log_steps(f"{phase} {label}", res, st, sec, tm_)
+        log(f"  {phase} topk main path: merge_kway_tile_groups launches "
+            f"{launched['merge_kway_tile_groups']}; greedy run "
+            f"{g_launched['merge_kway_tile_groups']}; {len(differ)} of {len(got)} "
+            f"token streams differ between the cuda and torch merge backends")
+        bad_tok = [rid for res in (got, greedy) for rid, t in res.items()
+                   if not all(0 <= v < cfg.vocab for v in t)]
+        if launched["merge_kway_tile_groups"] == 0 or differ or bad_tok \
+                or (greedy_launches and g_launched["merge_kway_tile_groups"] == 0) \
+                or len(got) != n_req or tokens != sum(r[3] for r in reqs):
+            raise AssertionError(
+                f"{phase}: launches {launched} (greedy {g_launched}), streams "
+                f"differ {differ}, tokens out of range {bad_tok}, {len(got)} "
+                f"requests served")
+
+        # Device busy share of five steady steps with every slot decoding.
+        eng = DecodeEngine(cfg, params, max_len=1024, sampler="topk", top_k=50,
+                           seed=7, device=self.dev)
+        for rid, (_, _, prompt, _) in enumerate(reqs[:cfg.max_batch]):
+            eng.submit(Request(rid, prompt[:32], 64))
+        with backend_env(ops, "cuda"):
+            for _ in range(40):
+                eng.step()
+            self.log_profile(f"{cfg.max_batch} slots busy",
+                             lambda: [eng.step() for _ in range(5)])
+        # Every grouped launch of one steady step, at the main path's shapes.
+        self.record_grouped(eng.step,
+                            lambda g, kk, w: f"{cfg.name} step ({g},{kk},{w})")
+        del eng
+
+    def log_profile(self, what: str, fn, steps: int = 5) -> None:
+        """Profile ``fn`` (``steps`` decode steps): wall and device time, the
+        busy share, launches a step, the top kernels and the host's CUDA
+        runtime calls (device-to-host copies and syncs among them)."""
+        wall, busy, kernels = self.device_profile(fn)
+        launches = sum(c for c, _ in kernels.values())
+        log(f"  profile of {steps} decode steps ({what}): wall {wall:.3f} ms, "
+            f"device {'not measured' if busy is None else f'{busy:.3f} ms'}"
+            + ("" if busy is None else f", busy share {busy / wall:.3f}, "
+               f"idle share {1 - busy / wall:.3f}")
+            + f", {launches / steps:.0f} kernel launches per step")
+        for name, (c, ms) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]:
+            log(f"    {ms / steps:.4f} ms/step in {c / steps:.0f} launches/step: {name[:90]}")
+        for name, (c, ms) in sorted(self.host_calls.items(), key=lambda kv: -kv[1][1])[:4]:
+            log(f"    host: {ms / steps:.4f} ms/step in {c / steps:.0f} calls/step: {name[:60]}")
+
+    # -- phase 7: the MoE family ------------------------------------------------
+
+    def phase_moe(self) -> None:
+        import gc
+
+        self.moe_dispatch()
+        for name, over in MOE_MODELS:
+            self.moe_model(name, over)  # its weights are freed on return
+            gc.collect()
+            self.torch.cuda.empty_cache()
+
+    def moe_dispatch(self) -> None:
+        """``moe_dispatch_dropless`` on 32,768 assignments in dbrx's and
+        deepseek-v3's shapes, uniform and one-hot-skewed: bit for bit
+        against the ``torch`` backend and ``torch.sort(stable=True)``;
+        then every grouped launch of the dispatch sort and of the router's
+        top-k at those token counts, each against its plain version."""
+        from repro_torch.core.mergesort import DEFAULT_FANOUT, _padded_pow2, _passes
+        from repro_torch.models.moe import moe_dispatch_dropless, route_topk
+
+        torch, km, ops, dev = self.torch, self.km, self.ops, self.dev
+        for name, t, k, n_exp, scoring in MOE_DISPATCH:
+            t >>= self.cut
+            n = t * k
+            passes = list(_passes(_padded_pow2(n), DEFAULT_FANOUT))
+            expect = sum(grp * w <= km.KWAY_TILE for _, grp, w in passes)
+            # each pass reads and writes every int32 key and int32 index once
+            bound_ms = len(passes) * 2 * _padded_pow2(n) * 8 / HBM_BYTES_PER_S * 1e3
+            for routing in ("uniform", "one-hot"):
+                experts = torch.randint(0, n_exp, (t, k), generator=self.gen,
+                                        device=dev, dtype=torch.int32)
+                if routing == "one-hot":  # every token picks expert 3 first
+                    experts[:, 0] = 3
+                self.reset()
+                with backend_env(ops, "cuda"):
+                    got = moe_dispatch_dropless(experts, n_exp)
+                launched = self.read_launches()["merge_kway_tile_groups"]
+                with backend_env(ops, "torch"):
+                    plain = moe_dispatch_dropless(experts, n_exp)
+                flat = experts.reshape(-1)
+                order = torch.sort(flat, stable=True)
+                oracle = (order.values, order.indices.int(),
+                          torch.bincount(flat.long(), minlength=n_exp).int())
+                bad = sum(self.mismatch(a, b)[0] for a, b in zip(got, plain))
+                bad_oracle = sum(self.mismatch(a, b)[0] for a, b in zip(got, oracle))
+                with backend_env(ops, "cuda"):
+                    entry_ms = self.timed_ms(lambda: moe_dispatch_dropless(experts, n_exp), 20)
+                with backend_env(ops, "torch"):
+                    plain_ms = self.timed_ms(lambda: moe_dispatch_dropless(experts, n_exp), 10)
+                sort_ms = self.timed_ms(lambda: torch.sort(flat, stable=True), 20)
+                log(f"  moe dispatch {name} ({t} tokens x top-{k} of {n_exp}, {routing}): "
+                    f"{n} assignments, {len(passes)} passes, {launched} grouped "
+                    f"launches; {bad} differ from the torch backend, {bad_oracle} "
+                    f"from torch.sort(stable=True); entry_ms={entry_ms:.4f} "
+                    f"plain_ms={plain_ms:.4f} torch.sort_ms={sort_ms:.4f} "
+                    f"bound_ms={bound_ms:.4f} (bytes of the passes)")
+                if bad or bad_oracle or launched != expect:
+                    raise AssertionError(
+                        f"moe dispatch {name} {routing}: {bad} + {bad_oracle} "
+                        f"mismatches, {launched} launches (expected {expect})")
+            self.record_grouped(
+                lambda: moe_dispatch_dropless(experts, n_exp),
+                lambda g, kk, w, name=name: f"moe dispatch {name} ({g},{kk},{w})")
+            logits = torch.randn((t, n_exp), generator=self.gen, device=dev)
+            self.record_grouped(
+                lambda: route_topk(logits, k, scoring=scoring),
+                lambda g, kk, w, name=name: f"moe router top-{k} {name} ({g},{kk},{w})")
+
+    def moe_model(self, name: str, over: dict) -> None:
+        """One model of the MoE family at full width, depth cut to fit the
+        card: a full-width MoE layer held against the dense reference, then
+        the serve path its cache takes (continuous or lock-step)."""
+        import dataclasses
+
+        from repro_torch.configs.registry import ARCHS
+        from repro_torch.models import transformer as tm
+
+        torch = self.torch
+        cfg = dataclasses.replace(ARCHS[name], **over)
+        gen = torch.Generator(device=self.dev).manual_seed(20131303)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = tm.init_params(cfg, gen, device=self.dev)
+        torch.cuda.synchronize()
+        log(f"phase moe: {name} at full width, cut to {over} "
+            f"({sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B params, "
+            f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated, drawn in "
+            f"{time.perf_counter() - t0:.1f} s)")
+        self.moe_layer(cfg, params)
+        if tm.cache_kind(cfg) == "gqa":
+            self.serve_runs(cfg, params, 16 >> min(self.cut, 3), f"moe serve {name}",
+                            greedy_launches=True)
+        else:
+            self.serve_lockstep(cfg, params)
+
+    def moe_layer(self, cfg, params) -> None:
+        """The first MoE layer's FFN on 64 bfloat16 tokens: dropless against
+        the dense all-experts reference, and capacity with capacity_factor
+        E/k (no drops) against dropless; relative L2 error <= 1e-2 each."""
+        from repro_torch.models.moe import moe_apply, moe_dense_reference
+
+        torch, ops = self.torch, self.ops
+        layer = _index(params["layers"]["mlp"], 0)
+        x = torch.randn((1, 64, cfg.d_model), generator=self.gen, device=self.dev
+                        ).to(torch.bfloat16)
+        kw = dict(n_experts=cfg.n_experts, top_k=cfg.moe_top_k,
+                  scoring=cfg.router_scoring)
+        runs = {
+            "dropless": lambda: moe_apply(layer, x, capacity_factor=cfg.capacity_factor,
+                                          dispatch="dropless", **kw),
+            "capacity": lambda: moe_apply(layer, x, dispatch="capacity",
+                                          capacity_factor=cfg.n_experts / cfg.moe_top_k, **kw),
+            "dense": lambda: moe_dense_reference(layer, x, **kw),
+        }
+        self.reset()
+        with backend_env(ops, "cuda"):
+            out = {k: fn() for k, fn in runs.items()}
+            launched = self.read_launches()["merge_kway_tile_groups"]
+            ms = {k: self.timed_ms(fn, 5) for k, fn in runs.items()}
+
+        def rel(a, b):
+            return float((a.float() - b.float()).norm() / b.float().norm())
+
+        err_dense = rel(out["dropless"], out["dense"])
+        err_cap = rel(out["capacity"], out["dropless"])
+        finite = all(bool(torch.isfinite(v).all()) for v in out.values())
+        log(f"  moe layer {cfg.name} (64 bf16 tokens, {cfg.n_experts} experts, "
+            f"top-{cfg.moe_top_k} {cfg.router_scoring}"
+            f"{', shared expert' if 'shared' in layer else ''}): dropless vs dense "
+            f"reference rel L2 {err_dense:.2e}, capacity (factor E/k) vs dropless "
+            f"{err_cap:.2e} (limit 1e-2), finite {finite}, {launched} grouped "
+            f"launches; dropless {ms['dropless']:.3f} ms, capacity "
+            f"{ms['capacity']:.3f} ms, dense reference {ms['dense']:.3f} ms")
+        if not (err_dense <= 1e-2 and err_cap <= 1e-2 and finite and launched):
+            raise AssertionError(f"moe layer {cfg.name}: errors {err_dense}, "
+                                 f"{err_cap}, finite {finite}, launches {launched}")
+
+    def serve_lockstep(self, cfg, params) -> None:
+        """The launcher's lock-step loop (``LockstepDecoder``) on
+        ``cfg.max_batch`` rows, a 32-token prompt and 32 new tokens:
+        ``topk`` on the ``cuda`` and ``torch`` merge backends (every row's
+        stream must be equal), then ``greedy``; both count their grouped
+        launches, which must be above 0.  Then a profile of five steady
+        steps (sample + decode)."""
+        import numpy as np
+        from repro_torch.launch.serve import LockstepDecoder
+        from repro_torch.models.transformer import cache_kind
+        from repro_torch.serving.sampling import request_keys
+
+        torch, ops = self.torch, self.ops
+        batch, prompt_len, n_new = cfg.max_batch, 32, 32
+        prompts = np.random.default_rng(20131303).integers(
+            1, cfg.vocab, (batch, prompt_len))
+        log(f"phase moe serve {cfg.name}: lock-step decode ({cfg.n_layers} layers, "
+            f"{cache_kind(cfg)} cache), batch {batch}, prompt {prompt_len}, "
+            f"{n_new} new tokens")
+
+        def events():
+            return [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+        class Timed(LockstepDecoder):
+            """Records CUDA events around each decode and each sample, and
+            whether every logit stayed finite."""
+
+            def _decode(self, tokens):
+                ev = events()
+                ev[0].record()
+                out = super()._decode(tokens)
+                ev[1].record()
+                self.finite &= torch.isfinite(out).all()
+                self.decodes.append(ev)
+                return out
+
+            def _sample(self, keys, logits):
+                ev = events()
+                ev[0].record()
+                out = super()._sample(keys, logits)
+                ev[1].record()
+                self.samples.append(ev)
+                return out
+
+        def run(sampler: str, backend: str, p=prompts, new=n_new):
+            dec = Timed(cfg, params, batch=batch, max_len=p.shape[1] + new,
+                        sampler=sampler, top_k=50, seed=7, device=self.dev)
+            dec.decodes, dec.samples = [], []
+            dec.finite = torch.ones((), dtype=torch.bool, device=self.dev)
+            with backend_env(ops, backend):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = dec.generate(p, new)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+            if not bool(dec.finite) or int(dec.cache.length) != p.shape[1] + new:
+                raise AssertionError(f"lock-step {sampler}/{backend}: finite "
+                                     f"{bool(dec.finite)}, length {int(dec.cache.length)}")
+            # a generated step: its sample, then the decode of the sampled token
+            times = [(d[0].elapsed_time(d[1]), s[0].elapsed_time(s[1]))
+                     for d, s in zip(dec.decodes[p.shape[1]:], dec.samples)]
+            return {b: out[b].tolist() for b in range(batch)}, len(dec.decodes), secs, times
+
+        run("topk", "cuda", prompts[:, :2], 2)  # warm-up
+        self.reset()
+        got, steps, secs, times = run("topk", "cuda")
+        launched = self.read_launches()["merge_kway_tile_groups"]
+        plain, *_ = run("topk", "torch")
+        self.reset()
+        greedy, g_steps, g_secs, g_times = run("greedy", "cuda")
+        g_launched = self.read_launches()["merge_kway_tile_groups"]
+        differ = [b for b in got if got[b] != plain[b]]
+        for label, res, st, sec, tm_ in (("topk", got, steps, secs, times),
+                                         ("greedy", greedy, g_steps, g_secs, g_times)):
+            log_steps(f"moe serve {cfg.name} lock-step {label}", res, st, sec, tm_)
+        log(f"  moe serve {cfg.name} lock-step: merge_kway_tile_groups launches "
+            f"{launched} (topk), {g_launched} (greedy); {len(differ)} of {batch} "
+            f"token streams differ between the cuda and torch merge backends")
+        bad_tok = [b for res in (got, greedy) for b, t in res.items()
+                   if len(t) != n_new or not all(0 <= v < cfg.vocab for v in t)]
+        if not launched or not g_launched or differ or bad_tok:
+            raise AssertionError(f"lock-step {cfg.name}: launches {launched}/"
+                                 f"{g_launched}, streams differ {differ}, bad "
+                                 f"rows {bad_tok}")
+
+        # Five steady steps (sample, then decode) after the prompt, then one
+        # more with every grouped launch held against its plain version.
+        dec = LockstepDecoder(cfg, params, batch=batch, max_len=prompt_len + 8,
+                              top_k=50, seed=7, device=self.dev)
+        rows = torch.arange(batch, device=self.dev)
+        with backend_env(ops, "cuda"):
+            toks = torch.from_numpy(prompts).to(self.dev)
+            logits = [dec._decode(toks[:, t:t + 1]) for t in range(prompt_len)][-1:]
+            done = [0]
+
+            def step():
+                keys = request_keys(7, rows, torch.full_like(rows, done[0]))
+                nxt = dec._sample(keys, logits[0])
+                logits[0] = dec._decode(nxt[:, None].long())
+                done[0] += 1
+
+            self.log_profile(f"lock-step batch {batch}",
+                             lambda: [step() for _ in range(5)])
+        self.record_grouped(step, lambda g, kk, w: f"{cfg.name} step ({g},{kk},{w})")
 
     # -- report -------------------------------------------------------------
 
@@ -819,6 +1138,27 @@ class backend_env:
             os.environ.pop(self.var, None)
         else:
             os.environ[self.var] = self.old
+
+
+def log_steps(label: str, res, steps: int, secs: float, times) -> None:
+    """One run's line: requests, tokens, tok/s, and the median and p90 of
+    the (decode, sample) CUDA-event times of its steps."""
+    step_ms = [a + b for a, b in times]
+    q = statistics.quantiles(step_ms, n=10)
+    tokens = sum(len(t) for t in res.values())
+    log(f"  {label}: {len(res)} requests, {tokens} tokens, {steps} steps, "
+        f"{secs:.3f} s wall, {tokens / secs:.1f} tok/s; "
+        f"step median {statistics.median(step_ms):.3f} ms, "
+        f"p90 {q[-1]:.3f} ms (CUDA events: decode + sample); "
+        f"sampler share {sum(b for _, b in times) / sum(step_ms):.3f}, "
+        f"sampler median {statistics.median(b for _, b in times):.3f} ms")
+
+
+def _index(tree, i: int):
+    """The ``i``-th layer of a tree of stacked tensors."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
 
 
 def _leaves(tree):
@@ -876,7 +1216,7 @@ def main() -> int:
     t_start = time.perf_counter()
     for phase in (smoke.phase_build, smoke.phase_merge, smoke.phase_merge_kway,
                   smoke.phase_merge_window, smoke.phase_external,
-                  smoke.phase_serve):
+                  smoke.phase_serve, smoke.phase_moe):
         t0 = time.perf_counter()
         try:
             phase()

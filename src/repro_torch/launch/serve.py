@@ -1,35 +1,51 @@
 """Serving launcher: continuous-batching decode with merge-based sampling
-(torch port of ``repro.launch.serve``, its continuous path).
+(torch port of ``repro.launch.serve``).
 
 ``python -m repro_torch.launch.serve --arch qwen3-0.6b`` serves on the
 card; ``--smoke --device cpu`` serves the reduced config on the CPU.
 
-Requests arrive staggered (``--arrival-every`` engine steps apart) and are
-admitted into free KV-pool slots between decode steps by the
+Archs with a ``gqa`` decode cache (dense and MoE) take the continuous
+path: requests arrive staggered (``--arrival-every`` engine steps apart)
+and are admitted into free KV-pool slots between decode steps by the
 :class:`~repro_torch.serving.engine.DecodeEngine`: one ragged step
 advances every active slot a token at its own position, and the whole
 batch's next tokens are drawn with the batched merge sampler.  Finished
-slots are recycled at once.  Weights are random, from ``init_params``
-with a seeded generator.
+slots are recycled at once.
 
-Only the ``gqa`` cache family is served.  The reference serves MLA and
-SSM/hybrid archs on a lock-step batch path, which is not ported yet: for
-those archs this launcher raises.  The reference's ``--metrics-dir``,
-``--profile-steps`` and ``--moe-dispatch`` wait for the ``obs`` and MoE
-ports.
+Archs with an ``mla`` cache (deepseek-v3) take the lock-step path
+(:class:`LockstepDecoder`): a fixed batch of ``max_batch`` rows starts
+together, the prompt is fed one token per ``decode_step``, and each row's
+tokens are drawn with the per-request samplers.  SSM/hybrid archs raise
+(ROADMAP.md, Queue 1 item 3).  ``--moe-dispatch`` overrides the MoE
+configs' dispatch.  Weights are random, from ``init_params`` with a
+seeded generator.  The reference's ``--metrics-dir`` and
+``--profile-steps`` wait for the ``obs`` port.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
 import torch
 
 from repro_torch.configs.registry import ARCHS, smoke_config
-from repro_torch.models.transformer import cache_kind, init_params
+from repro_torch.models.transformer import (
+    cache_kind,
+    compute_params,
+    decode_step,
+    init_cache,
+    init_params,
+)
 from repro_torch.serving import DecodeEngine, Request
+from repro_torch.serving.sampling import (
+    request_keys,
+    sample_greedy,
+    sample_topk,
+    sample_topp,
+)
 
 
 def _serve_continuous(cfg, params, args, device):
@@ -76,13 +92,81 @@ def _serve_continuous(cfg, params, args, device):
     return results
 
 
-def _serve_lockstep(cfg):
-    """The reference's fixed-batch decode for MLA / SSM / hybrid caches."""
-    raise NotImplementedError(
-        f"{cfg.name}: the {cache_kind(cfg)!r} cache is served by the "
-        f"lock-step decode path, which is not ported yet (ROADMAP.md, "
-        f"Queue 1 item 3)"
-    )
+class LockstepDecoder:
+    """Fixed-batch decode over one cache of ``batch`` rows: every row
+    starts together, the prompt is fed one token per ``decode_step`` and
+    then every row samples a token per step.  Row ``b``'s draw at token
+    index ``i`` uses the key ``request_keys(seed, b, i)``; ``topp`` keeps
+    the reference's nucleus of 0.9 over 64 candidates, and the cache is
+    bfloat16, as in the reference.  ``params`` is the model's tree on
+    ``device`` (the params' device by default)."""
+
+    def __init__(self, cfg, params, *, batch: int, max_len: int,
+                 sampler: str = "topk", top_k: int = 50, seed: int = 42,
+                 device=None):
+        if sampler not in ("greedy", "topk", "topp"):
+            raise ValueError(f"unknown sampler {sampler!r}")
+        self.cfg = cfg
+        self.device = torch.device(device) if device is not None else (
+            params["embed"]["table"].device)
+        self.params = compute_params(cfg, params)
+        self.cache = init_cache(cfg, batch, max_len, device=self.device)
+        self.batch = batch
+        self.sampler = sampler
+        self.top_k = min(top_k, cfg.vocab)
+        self.seed = seed
+
+    def _decode(self, tokens: torch.Tensor) -> torch.Tensor:
+        logits, self.cache = decode_step(self.cfg, self.params, self.cache,
+                                         tokens)
+        return logits
+
+    def _sample(self, keys: torch.Tensor, logits: torch.Tensor):
+        if self.sampler == "greedy":
+            return sample_greedy(logits)
+        if self.sampler == "topk":
+            return sample_topk(keys, logits, k=self.top_k,
+                               fanout=self.cfg.fanout)
+        return sample_topp(keys, logits, p=0.9, k=min(64, self.cfg.vocab),
+                           fanout=self.cfg.fanout)
+
+    def generate(self, prompts: np.ndarray, n_tokens: int) -> np.ndarray:
+        """``prompts`` ``(batch, prompt_len)`` -> ``(batch, n_tokens)``
+        generated token ids; the cache ends at ``prompt_len + n_tokens``."""
+        tokens = torch.from_numpy(np.asarray(prompts, np.int64)).to(self.device)
+        logits = None
+        for t in range(tokens.shape[1]):
+            logits = self._decode(tokens[:, t:t + 1])
+        rows = torch.arange(self.batch, device=self.device)
+        out = []
+        for i in range(n_tokens):
+            nxt = self._sample(request_keys(self.seed, rows,
+                                            torch.full_like(rows, i)), logits)
+            out.append(nxt)
+            logits = self._decode(nxt[:, None].long())
+        return torch.stack(out, dim=1).cpu().numpy()
+
+
+def _serve_lockstep(cfg, params, args, device):
+    """Lock-step path (mla-cache archs): the reference's fixed batch."""
+    batch = args.max_batch or cfg.max_batch
+    max_len = args.prompt_len + args.tokens
+    dec = LockstepDecoder(cfg, params, batch=batch, max_len=max_len,
+                          sampler=args.sampler, top_k=50, seed=args.seed,
+                          device=device)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(1, cfg.vocab, (batch, args.prompt_len))
+    t0 = time.time()
+    gen = dec.generate(prompts, args.tokens)
+    dt = time.time() - t0
+    print(f"generated {gen.shape} tokens in {dt:.2f}s "
+          f"({batch * args.tokens / dt:.1f} tok/s) on {device} [lock-step]")
+    for b in range(min(batch, 2)):
+        print(f"  seq{b}: {gen[b][:16].tolist()}...")
+    if int(dec.cache.length) != max_len:
+        raise RuntimeError(f"lock-step cache at {int(dec.cache.length)}, "
+                           f"expected {max_len}")
+    return {b: gen[b].tolist() for b in range(batch)}
 
 
 def main(argv=None):
@@ -107,6 +191,9 @@ def main(argv=None):
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="where the model runs (default: the card)")
     ap.add_argument("--verbose", action="store_true")
+    ap.add_argument("--moe-dispatch", choices=("capacity", "dropless"),
+                    default=None,
+                    help="override ModelConfig.moe_dispatch (MoE archs)")
     args = ap.parse_args(argv)
 
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -116,11 +203,13 @@ def main(argv=None):
     cfg = ARCHS[args.arch]
     if args.smoke:
         cfg = smoke_config(cfg)
-    if cache_kind(cfg) != "gqa":
-        return _serve_lockstep(cfg)
+    if args.moe_dispatch is not None:
+        cfg = dataclasses.replace(cfg, moe_dispatch=args.moe_dispatch)
     gen = torch.Generator(device=device).manual_seed(0)
     params = init_params(cfg, gen, device=device)
-    return _serve_continuous(cfg, params, args, device)
+    if cache_kind(cfg) == "gqa":
+        return _serve_continuous(cfg, params, args, device)
+    return _serve_lockstep(cfg, params, args, device)
 
 
 if __name__ == "__main__":

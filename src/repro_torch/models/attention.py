@@ -24,18 +24,19 @@ __all__ = ["init_gqa", "qkv_project", "attention_output", "decode_attention"]
 
 
 def init_gqa(gen, d, n_heads, n_kv, head_dim, qkv_bias=False, qk_norm=False,
-             *, device, layers: tuple = ()):
-    """GQA weights; ``layers`` prepends stacked-layer axes to each."""
+             *, device, layers: tuple = (), dtype=torch.float32):
+    """GQA weights, the projections stored in ``dtype``; ``layers``
+    prepends stacked-layer axes to each."""
     std = 1.0 / math.sqrt(d)
     p = {
         "wq": truncated_normal(gen, (*layers, d, n_heads, head_dim), std,
-                               device=device),
+                               dtype, device=device),
         "wk": truncated_normal(gen, (*layers, d, n_kv, head_dim), std,
-                               device=device),
+                               dtype, device=device),
         "wv": truncated_normal(gen, (*layers, d, n_kv, head_dim), std,
-                               device=device),
+                               dtype, device=device),
         "wo": truncated_normal(gen, (*layers, n_heads, head_dim, d),
-                               1.0 / math.sqrt(n_heads * head_dim),
+                               1.0 / math.sqrt(n_heads * head_dim), dtype,
                                device=device),
     }
     zeros = dict(dtype=torch.float32, device=device)

@@ -29,13 +29,24 @@ __all__ = [
 ]
 
 
+# Elements drawn in float32 at a time (1 GiB): a full-width leaf is drawn
+# and cast chunk by chunk, so float32 never holds more than one chunk.
+DRAW_CHUNK = 1 << 28
+
+
 def truncated_normal(gen: torch.Generator, shape, std: float,
                      dtype=torch.float32, *, device) -> torch.Tensor:
     """``std`` times a normal truncated to [-2, 2], drawn from ``gen``
-    (which lives on ``device``)."""
-    t = torch.empty(shape, dtype=torch.float32, device=device)
-    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (t * std).to(dtype)
+    (which lives on ``device``) in float32 and stored in ``dtype``, at
+    most :data:`DRAW_CHUNK` elements at a time."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    flat = out.view(-1)
+    for lo in range(0, flat.numel(), DRAW_CHUNK):
+        n = min(DRAW_CHUNK, flat.numel() - lo)
+        t = torch.empty((n,), dtype=torch.float32, device=device)
+        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        flat[lo:lo + n] = t.mul_(std)
+    return out
 
 
 # -- normalisation -----------------------------------------------------------
@@ -56,8 +67,9 @@ def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 # -- embeddings --------------------------------------------------------------
 
 
-def init_embedding(gen, vocab: int, d: int, *, device):
-    return {"table": truncated_normal(gen, (vocab, d), 0.02, device=device)}
+def init_embedding(gen, vocab: int, d: int, *, device, dtype=torch.float32):
+    return {"table": truncated_normal(gen, (vocab, d), 0.02, dtype,
+                                      device=device)}
 
 
 def embed(params, tokens: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
@@ -73,14 +85,16 @@ def unembed(params, x: torch.Tensor) -> torch.Tensor:
 
 
 def init_mlp(gen, d: int, ff: int, kind: str = "swiglu", *, device,
-             layers: tuple = ()):
-    """MLP weights; ``layers`` prepends stacked-layer axes to each."""
+             layers: tuple = (), dtype=torch.float32):
+    """MLP weights, stored in ``dtype``; ``layers`` prepends stacked-layer
+    axes to each."""
     std_in = 1.0 / math.sqrt(d)
     std_out = 1.0 / math.sqrt(ff)
     names = ("w_gate", "w_up") if kind == "swiglu" else ("w_up",)
-    p = {n: truncated_normal(gen, (*layers, d, ff), std_in, device=device)
+    p = {n: truncated_normal(gen, (*layers, d, ff), std_in, dtype,
+                             device=device)
          for n in names}
-    p["w_down"] = truncated_normal(gen, (*layers, ff, d), std_out,
+    p["w_down"] = truncated_normal(gen, (*layers, ff, d), std_out, dtype,
                                    device=device)
     return p
 

@@ -1,23 +1,31 @@
-"""Model assembly, dense GQA decode (torch port of ``repro.models.transformer``).
+"""Model assembly and decode (torch port of ``repro.models.transformer``).
 
-What is ported: ``init_params`` for the dense families (``dense``, and the
+What is ported: ``init_params`` for the dense (``dense``, and the
 ``vlm``/``audio`` backbones, whose frontends are stubs in the reference
-too), ``_cast_params``, the decode :class:`Cache`, ``init_cache`` for the
-``gqa`` cache family and the continuous-batching decode step
-``decode_step_ragged``.  MLA, SSM and hybrid caches, MoE layers, the
-lock-step ``decode_step``, ``prefill_logits`` and ``train_loss`` raise
+too) and MoE families, with GQA or MLA attention and ``first_k_dense``
+leading dense layers; ``_cast_params``; the decode :class:`Cache`;
+``init_cache`` for the ``gqa`` and ``mla`` cache families; the
+continuous-batching step ``decode_step_ragged`` (``gqa`` caches) and the
+lock-step ``decode_step`` (``gqa`` and ``mla`` caches).  The SSM and
+hybrid families, ``prefill_logits`` and ``train_loss`` raise
 ``NotImplementedError``: they are items of ROADMAP.md's Queue 1.
 
 Params are the reference's pytree as nested dicts of tensors, layers
-stacked on a leading axis.  :func:`compute_params` hands the layers over
-as a list of per-layer trees, so a decode step indexes no stacked tensor,
-and casts the weights the reference casts on every use (those >= 2-D per
-layer) to the compute dtype once, at load: the values are the same, and
-the ``.to(dtype)`` calls the decode path keeps then return their input.
+stacked on a leading axis (``dense_layers`` holds the leading dense layers
+of a ``first_k_dense`` MoE config, ``layers`` the rest).
+:func:`compute_params` hands both stacks over as lists of per-layer trees,
+so a decode step indexes no stacked tensor, and casts the weights the
+reference casts on every use (those >= 2-D per layer) to the compute dtype
+once, at load: the values are the same, and the ``.to(dtype)`` calls the
+decode path keeps then return their input.  ``init_params`` draws every
+matrix straight into ``cfg.param_dtype`` a chunk at a time
+(``layers.truncated_normal``), so a full-width MoE config never holds its
+experts in float32.
 
-The decode step updates the cache tensors in place (the reference returns
-new ones): slot ``s``'s key and value land at position ``lengths[s]`` of
-its own cache rows.
+The decode steps update the cache tensors in place (the reference returns
+new ones): the ragged step writes slot ``s``'s entry at position
+``lengths[s]`` of its own cache rows, the lock-step one every row's at the
+shared ``length``.
 """
 
 from __future__ import annotations
@@ -31,11 +39,14 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
+from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 
 __all__ = [
     "Cache",
     "cache_kind",
     "compute_params",
+    "decode_step",
     "decode_step_ragged",
     "init_cache",
     "init_params",
@@ -48,11 +59,14 @@ def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    for flag, what in ((cfg.ssm, "the SSM/hybrid family"),
-                       (cfg.mla, "MLA attention"), (cfg.moe, "the MoE layer")):
-        if flag:
-            raise NotImplementedError(f"{cfg.name}: {what} {_NOT_PORTED}")
+def _check_ported(cfg: ModelConfig) -> None:
+    if cfg.ssm:
+        raise NotImplementedError(
+            f"{cfg.name}: the SSM/hybrid family {_NOT_PORTED}")
+    if cfg.moe and not cfg.use_merge_sort_dispatch:
+        raise ValueError(
+            f"{cfg.name}: the port dispatches with the co-rank merge sort "
+            "only (use_merge_sort_dispatch=True)")
 
 
 # --------------------------------------------------------------------------
@@ -60,37 +74,58 @@ def _check_dense(cfg: ModelConfig) -> None:
 # --------------------------------------------------------------------------
 
 
-def _dense_layers_init(gen, cfg: ModelConfig, n: int, device):
-    """``n`` dense layers, each weight stacked on a leading axis."""
-    stack = (n,)
-    ap = attn_mod.init_gqa(
-        gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
-        qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm, device=device,
-        layers=stack,
-    )
-    mp = L.init_mlp(gen, cfg.d_model, cfg.d_ff, kind=cfg.mlp_kind,
-                    device=device, layers=stack)
+def _layers_init(gen, cfg: ModelConfig, n: int, device, *, moe: bool):
+    """``n`` layers, each weight stacked on a leading axis: attention (GQA
+    or MLA), then an MoE FFN (``moe``) or the dense MLP."""
+    stack, dt = (n,), _dtype(cfg.param_dtype)
+    if cfg.mla:
+        ap = mla_mod.init_mla(
+            gen, cfg.d_model, cfg.n_heads, q_lora_rank=cfg.q_lora_rank,
+            kv_lora_rank=cfg.kv_lora_rank,
+            qk_nope_head_dim=cfg.qk_nope_head_dim,
+            qk_rope_head_dim=cfg.qk_rope_head_dim, v_head_dim=cfg.v_head_dim,
+            device=device, layers=stack, dtype=dt)
+    else:
+        ap = attn_mod.init_gqa(
+            gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.resolved_head_dim, qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm,
+            device=device, layers=stack, dtype=dt)
+    if moe:
+        ff = cfg.moe_ff or cfg.d_ff
+        mp = moe_mod.init_moe(
+            gen, cfg.d_model, ff, cfg.n_experts, n_shared=cfg.n_shared_experts,
+            shared_ff=ff * max(cfg.n_shared_experts, 1), device=device,
+            layers=stack, dtype=dt)
+    else:
+        mp = L.init_mlp(gen, cfg.d_model, cfg.d_ff, kind=cfg.mlp_kind,
+                        device=device, layers=stack, dtype=dt)
     ones = torch.ones((n, cfg.d_model), dtype=torch.float32, device=device)
     return {"attn": ap, "mlp": mp, "ln1": {"scale": ones},
             "ln2": {"scale": ones.clone()}}
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, device="cuda"):
-    """Random weights of a dense config on ``device`` (the card unless the
-    caller passes ``"cpu"``), drawn from ``gen``, a generator on that
-    device: the reference's tree and distributions, not its numbers
-    (torch's generators are not JAX's)."""
-    _check_dense(cfg)
+    """Random weights of a dense or MoE config on ``device`` (the card
+    unless the caller passes ``"cpu"``), drawn from ``gen``, a generator on
+    that device: the reference's tree, dtypes and distributions, not its
+    numbers (torch's generators are not JAX's)."""
+    _check_ported(cfg)
+    dt = _dtype(cfg.param_dtype)
     params: dict[str, Any] = {"embed": L.init_embedding(
-        gen, cfg.vocab, cfg.d_model, device=device)}
+        gen, cfg.vocab, cfg.d_model, device=device, dtype=dt)}
     if not cfg.tie_embeddings:
         params["unembed"] = L.init_embedding(gen, cfg.vocab, cfg.d_model,
-                                             device=device)
+                                             device=device, dtype=dt)
     params["final_norm"] = L.init_rmsnorm(cfg.d_model, device=device)
     if cfg.frontend != "none":
         params["frontend_proj"] = L.truncated_normal(
-            gen, (cfg.d_model, cfg.d_model), 0.02, device=device)
-    params["layers"] = _dense_layers_init(gen, cfg, cfg.n_layers, device)
+            gen, (cfg.d_model, cfg.d_model), 0.02, dt, device=device)
+    if cfg.moe and cfg.first_k_dense:
+        params["dense_layers"] = _layers_init(gen, cfg, cfg.first_k_dense,
+                                              device, moe=False)
+    params["layers"] = _layers_init(
+        gen, cfg, cfg.n_layers - (cfg.first_k_dense if cfg.moe else 0),
+        device, moe=cfg.moe)
     return _cast_params(cfg, params)
 
 
@@ -113,17 +148,18 @@ def _cast_params(cfg: ModelConfig, params):
 
 
 def compute_params(cfg: ModelConfig, params):
-    """``params`` ready for decoding: ``layers`` as a list of per-layer
-    trees, and every weight that is >= 2-D *per layer* (the matrices, the
-    embedding tables, the QKV biases) in the compute dtype ``cfg.dtype`` --
-    the reference's per-use cast, done once.  Norm scales stay float32."""
+    """``params`` ready for decoding: ``layers`` (and ``dense_layers``) as
+    lists of per-layer trees, and every weight that is >= 2-D *per layer*
+    (the matrices, the expert stacks, the embedding tables, the QKV biases)
+    in the compute dtype ``cfg.dtype`` -- the reference's per-use cast, done
+    once.  Norm scales keep their dtype."""
     dt = _dtype(cfg.dtype)
     out = dict(params)
-    layers = out["layers"]
-    if isinstance(layers, dict):
-        layers = [_map(lambda a, i=i: a[i], layers)
-                  for i in range(_depth(layers))]
-    out["layers"] = layers
+    for name in ("dense_layers", "layers"):
+        layers = out.get(name)
+        if isinstance(layers, dict):
+            out[name] = [_map(lambda a, i=i: a[i], layers)
+                         for i in range(_depth(layers))]
     return _map(lambda p: p.to(dt) if p.dim() >= 2 and p.is_floating_point()
                 else p, out)
 
@@ -159,17 +195,24 @@ def cache_kind(cfg: ModelConfig) -> str:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device="cuda") -> Cache:
-    """Zeroed ``gqa`` cache on ``device``: k and v ``(n_layers, batch,
-    max_len, n_kv, head_dim)``, length a scalar 0.  Other families raise."""
+    """Zeroed decode cache on ``device``, length a scalar 0.  ``gqa``: k
+    and v ``(n_layers, batch, max_len, n_kv, head_dim)``; ``mla``: the
+    latent ``(n_layers, batch, max_len, kv_lora_rank)`` and the rope key
+    ``(n_layers, batch, max_len, qk_rope_head_dim)``.  SSM and hybrid
+    caches raise."""
     kind = cache_kind(cfg)
-    if kind != "gqa":
+    ll = cfg.n_layers
+    if kind == "mla":
+        shapes = ((ll, batch, max_len, cfg.kv_lora_rank),
+                  (ll, batch, max_len, cfg.qk_rope_head_dim))
+    elif kind == "gqa":
+        shapes = ((ll, batch, max_len, cfg.n_kv_heads,
+                   cfg.resolved_head_dim),) * 2
+    else:
         raise NotImplementedError(
             f"{cfg.name}: the {kind!r} decode cache {_NOT_PORTED}")
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
-             cfg.resolved_head_dim)
-    k = torch.zeros(shape, dtype=dtype, device=device)
-    v = torch.zeros(shape, dtype=dtype, device=device)
-    return Cache("gqa", (k, v),
+    return Cache(kind, tuple(torch.zeros(s, dtype=dtype, device=device)
+                             for s in shapes),
                  torch.zeros((), dtype=torch.int32, device=device))
 
 
@@ -183,6 +226,48 @@ def _sinusoid_table(seq: int, d: int, dtype, device):
     return L.sinusoidal_positions(seq, d, dtype, device=device)
 
 
+def _embed_and_tables(cfg, params, cache, tokens, pos):
+    """Token embeddings (plus sinusoidal positions at ``pos``, a ``(b,)``
+    or scalar tensor) and the rope tables for the cache's ``max_len``."""
+    dtype = _dtype(cfg.dtype)
+    dev = tokens.device
+    x = L.embed(params["embed"], tokens, dtype)
+    max_len = cache.data[0].shape[2]
+    if cfg.pos_emb == "sinusoidal":
+        table = _sinusoid_table(max_len + 1, cfg.d_model, dtype, dev)
+        return x + table[pos].reshape(-1, 1, cfg.d_model), None, None
+    hd = cfg.qk_rope_head_dim if cfg.mla else cfg.resolved_head_dim
+    cos, sin = _rope_tables(hd, max_len + 1, cfg.rope_theta, dev)
+    return x, cos, sin
+
+
+def _logits(cfg, params, x):
+    h = L.rmsnorm(params["final_norm"], x)
+    table = params["embed" if cfg.tie_embeddings else "unembed"]["table"]
+    logits = torch.einsum("bsd,vd->bsv", h, table.to(_dtype(cfg.dtype)))
+    return logits[:, 0].float()
+
+
+def _layer_list(cfg, params):
+    """``(layer params, is an MoE layer)`` in cache order: the leading
+    dense layers of a ``first_k_dense`` config first."""
+    return ([(lp, False) for lp in params.get("dense_layers", [])]
+            + [(lp, cfg.moe) for lp in params["layers"]])
+
+
+def _ffn_block(cfg, lp, x, *, moe_layer):
+    h = L.rmsnorm(lp["ln2"], x)
+    if moe_layer:
+        ff = moe_mod.moe_apply(
+            lp["mlp"], h, n_experts=cfg.n_experts, top_k=cfg.moe_top_k,
+            capacity_factor=cfg.capacity_factor, scoring=cfg.router_scoring,
+            dispatch_groups=cfg.moe_dispatch_groups,
+            dispatch=cfg.moe_dispatch)
+    else:
+        ff = L.mlp(lp["mlp"], h, kind=cfg.mlp_kind)
+    return x + ff
+
+
 def decode_step_ragged(cfg: ModelConfig, params, cache: Cache,
                        tokens: torch.Tensor, lengths: torch.Tensor):
     """One token for every *slot* at per-slot positions (continuous
@@ -194,40 +279,21 @@ def decode_step_ragged(cfg: ModelConfig, params, cache: Cache,
     with ``length == lengths + 1`` for every slot (the serving engine holds
     back the lengths of inactive slots itself).
 
-    Only the ``gqa`` cache family has per-slot positions; other caches
-    raise, as in the reference.
+    Only the ``gqa`` cache family (dense and MoE configs) has per-slot
+    positions; other caches raise, as in the reference.
     """
     if cache.kind != "gqa":
         raise NotImplementedError(
             f"continuous-batching decode supports the 'gqa' cache family; "
-            f"got {cache.kind!r}")
-    _check_dense(cfg)
-    dtype = _dtype(cfg.dtype)
-    dev = tokens.device
-    lengths = lengths.to(device=dev, dtype=torch.int32)
-    x = L.embed(params["embed"], tokens, dtype)
-    max_len = cache.data[-1].shape[2]
-    if cfg.pos_emb == "sinusoidal":
-        table = _sinusoid_table(max_len + 1, cfg.d_model, dtype, dev)
-        x = x + table[lengths][:, None, :]
-        cos = sin = None
-    else:
-        cos, sin = _rope_tables(cfg.resolved_head_dim, max_len + 1,
-                                cfg.rope_theta, dev)
-    positions = lengths[:, None]  # (b, 1): per-slot rope positions
-    x = _decode_gqa_ragged(cfg, params, cache, x, cos, sin, positions,
-                           lengths)
-    h = L.rmsnorm(params["final_norm"], x)
-    table = params["embed" if cfg.tie_embeddings else "unembed"]["table"]
-    logits = torch.einsum("bsd,vd->bsv", h, table.to(dtype))
-    return logits[:, 0].float(), Cache("gqa", cache.data, lengths + 1)
-
-
-def _decode_gqa_ragged(cfg, params, cache, x, cos, sin, positions, lengths):
+            f"got {cache.kind!r} (use the lock-step decode_step path)")
+    _check_ported(cfg)
+    lengths = lengths.to(device=tokens.device, dtype=torch.int32)
+    x, cos, sin = _embed_and_tables(cfg, params, cache, tokens, lengths)
     kc, vc = cache.data
     rows = torch.arange(x.shape[0], device=x.device)
     idx = lengths.long()
-    for i, lp in enumerate(params["layers"]):
+    positions = lengths[:, None]  # (b, 1): per-slot rope positions
+    for i, (lp, moe_layer) in enumerate(_layer_list(cfg, params)):
         h = L.rmsnorm(lp["ln1"], x)
         q, k, v = attn_mod.qkv_project(lp["attn"], h, cos, sin, positions,
                                        qk_norm=cfg.qk_norm)
@@ -236,5 +302,42 @@ def _decode_gqa_ragged(cfg, params, cache, x, cos, sin, positions, lengths):
         vc[i, rows, idx] = v[:, 0].to(vc.dtype)
         o = attn_mod.decode_attention(q, kc[i], vc[i], lengths + 1)
         x = x + attn_mod.attention_output(lp["attn"], o, x.dtype)
-        x = x + L.mlp(lp["mlp"], L.rmsnorm(lp["ln2"], x), kind=cfg.mlp_kind)
-    return x
+        x = _ffn_block(cfg, lp, x, moe_layer=moe_layer)
+    return _logits(cfg, params, x), Cache("gqa", cache.data, lengths + 1)
+
+
+def decode_step(cfg: ModelConfig, params, cache: Cache,
+                tokens: torch.Tensor):
+    """One token for every row at the shared position ``cache.length``
+    (the lock-step batch path).  ``params`` as :func:`compute_params`
+    returns them; tokens ``(b, 1)``.  Returns ``(logits (b, vocab)
+    float32, cache)``: the same cache tensors, updated in place, with the
+    length one higher.  A ``gqa`` cache takes :func:`decode_step_ragged`
+    with every slot at that length; an ``mla`` cache runs the absorbed MLA
+    decode; SSM and hybrid caches raise."""
+    if cache.kind not in ("gqa", "mla"):
+        raise NotImplementedError(
+            f"{cfg.name}: decode of the {cache.kind!r} cache {_NOT_PORTED}")
+    _check_ported(cfg)
+    pos = cache.length.to(tokens.device)
+    b = tokens.shape[0]
+    if cache.kind == "gqa":
+        logits, _ = decode_step_ragged(cfg, params, cache, tokens,
+                                       pos.expand(b))
+        return logits, Cache("gqa", cache.data, pos + 1)
+    x, cos, sin = _embed_and_tables(cfg, params, cache, tokens, pos)
+    positions = pos.reshape(1, 1).expand(b, 1)
+    at = pos.reshape(1).long()  # the cache position written this step
+    dims = dict(qk_nope_head_dim=cfg.qk_nope_head_dim,
+                qk_rope_head_dim=cfg.qk_rope_head_dim)
+    ckv, kr = cache.data
+    for i, (lp, moe_layer) in enumerate(_layer_list(cfg, params)):
+        h = L.rmsnorm(lp["ln1"], x)
+        q_nope, q_rope, c_kv, k_rope = mla_mod.mla_latents(
+            lp["attn"], h, cos, sin, positions, dims)
+        ckv[i].index_copy_(1, at, c_kv.to(ckv.dtype))
+        kr[i].index_copy_(1, at, k_rope.to(kr.dtype))
+        o = mla_mod.mla_attention_decode(lp["attn"], q_nope, q_rope, dims,
+                                         ckv[i], kr[i], pos + 1)
+        x = _ffn_block(cfg, lp, x + o, moe_layer=moe_layer)
+    return _logits(cfg, params, x), Cache("mla", cache.data, pos + 1)

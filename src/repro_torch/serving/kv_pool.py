@@ -24,7 +24,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.transformer import Cache, init_cache
+from repro_torch.models.transformer import Cache, cache_kind, init_cache
 
 __all__ = ["KVPool"]
 
@@ -39,6 +39,10 @@ class KVPool:
                  dtype=torch.bfloat16, device="cuda"):
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
+        if cache_kind(cfg) == "mla":
+            raise NotImplementedError(
+                f"KVPool supports the 'gqa' cache family; got 'mla' "
+                f"({cfg.name} is served by the lock-step decode_step)")
         base = init_cache(cfg, capacity, max_len, dtype=dtype, device=device)
         self.capacity = capacity
         self.max_len = max_len

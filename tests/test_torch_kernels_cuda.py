@@ -400,3 +400,75 @@ def test_topk_on_card_matches_cpu_and_sort(cuda_device, dtype):
     assert torch.equal(vals.cpu().view(torch.int16), cv.view(torch.int16))
     order = torch.sort(-(x.float() + 0.0), dim=1, stable=True).indices[:, :50]
     assert torch.equal(idx.long(), order)
+
+
+# --- the MoE layer's merges: dispatch sort and router top-k -------------------------
+
+
+def _tile_passes(n: int) -> int:
+    """Passes of ``sort_key_val`` over ``n`` keys that fit one tile."""
+    from repro_torch.core.mergesort import DEFAULT_FANOUT, _padded_pow2, _passes
+
+    return sum(group * width <= km.KWAY_TILE
+               for _, group, width in _passes(_padded_pow2(n), DEFAULT_FANOUT))
+
+
+@pytest.mark.parametrize("routing", ["uniform", "one_hot"])
+@pytest.mark.parametrize("t,k,n_experts", [(8192, 4, 16), (4096, 8, 256),
+                                           (8, 4, 16), (4, 8, 256)])
+def test_moe_dispatch_on_grouped_launch_on_card(cuda_device, monkeypatch, t,
+                                                k, n_experts, routing):
+    """The dispatch sort of dbrx's and deepseek-v3's shapes (a prefill
+    batch and a decode batch): every tile-sized pass a grouped launch, the
+    plan bit for bit the plain path's and ``torch.sort(stable=True)``'s."""
+    from repro_torch.models.moe import moe_dispatch, moe_dispatch_dropless
+
+    g = torch.Generator(device=cuda_device).manual_seed(t * k)
+    experts = torch.randint(0, n_experts, (t, k), generator=g,
+                            device=cuda_device, dtype=torch.int32)
+    if routing == "one_hot":
+        experts[:, 0] = 3
+    km.merge_kway_tile_groups.launches = 0
+    got = moe_dispatch_dropless(experts, n_experts)
+    assert km.merge_kway_tile_groups.launches == _tile_passes(t * k)
+    plan = moe_dispatch(experts, n_experts, capacity=t * k // n_experts)
+    monkeypatch.setenv(ops.BACKEND_ENV_VAR, "torch")
+    want = moe_dispatch_dropless(experts, n_experts)
+    want_plan = moe_dispatch(experts, n_experts, capacity=t * k // n_experts)
+    for x, y in zip(got + plan, want + want_plan):
+        assert torch.equal(x, y)
+    order = torch.sort(experts.reshape(-1), stable=True)
+    assert torch.equal(got[0], order.values)
+    assert torch.equal(got[1].long(), order.indices)
+    assert torch.equal(got[2].long(), torch.bincount(experts.reshape(-1).long(),
+                                                     minlength=n_experts))
+
+
+@pytest.mark.parametrize("router", ["random", "one_hot"])
+@pytest.mark.parametrize("scoring,t,n_experts,k", [
+    ("softmax", 64, 16, 4), ("softmax", 8, 16, 4),
+    ("sigmoid", 64, 256, 8), ("sigmoid", 4, 256, 8)])
+def test_route_topk_on_grouped_launch_on_card(cuda_device, monkeypatch,
+                                              scoring, t, n_experts, k,
+                                              router):
+    """The router's top-k on the grouped launch against the plain path
+    (same scores, bit for bit) and a stable sort; the one-hot router ties
+    every expert but one, and the ties go to the lower ids."""
+    from repro_torch.models.moe import route_topk
+
+    g = torch.Generator(device=cuda_device).manual_seed(t + n_experts)
+    if router == "one_hot":
+        logits = torch.zeros((t, n_experts), device=cuda_device)
+        logits[:, 3] = 5.0
+    else:
+        logits = torch.randn((t, n_experts), generator=g, device=cuda_device)
+    km.merge_kway_tile_groups.launches = 0
+    w, e = route_topk(logits, k, scoring=scoring)
+    assert km.merge_kway_tile_groups.launches > 0
+    monkeypatch.setenv(ops.BACKEND_ENV_VAR, "torch")
+    pw, pe = route_topk(logits, k, scoring=scoring)
+    assert torch.equal(e, pe) and torch.equal(w, pw)
+    scores = (torch.sigmoid(logits) if scoring == "sigmoid"
+              else torch.softmax(logits, -1))
+    order = torch.sort(-scores, dim=1, stable=True).indices[:, :k]
+    assert torch.equal(e.long(), order)

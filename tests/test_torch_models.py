@@ -45,9 +45,15 @@ def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
 
+# Smoke configs with fields changed from the registry's: dbrx with one
+# leading dense layer (the ``dense_layers`` stack on the gqa cache).
+VARIANTS = {"dbrx-132b+dense1": ("dbrx-132b", {"first_k_dense": 1})}
+
+
 def _cfgs(name, dtype="float32"):
-    return (dataclasses.replace(ref_smoke(REF_ARCHS[name]), dtype=dtype),
-            dataclasses.replace(smoke_config(ARCHS[name]), dtype=dtype))
+    name, over = VARIANTS.get(name, (name, {}))
+    return (dataclasses.replace(ref_smoke(REF_ARCHS[name]), dtype=dtype, **over),
+            dataclasses.replace(smoke_config(ARCHS[name]), dtype=dtype, **over))
 
 
 # --- configs and weights ----------------------------------------------------------
@@ -73,7 +79,9 @@ def _shapes(tree, prefix=""):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen1.5-110b",
-                                  "musicgen-medium", "internvl2-26b"])
+                                  "musicgen-medium", "internvl2-26b",
+                                  "dbrx-132b", "dbrx-132b+dense1",
+                                  "deepseek-v3-671b"])
 def test_init_params_tree_matches_reference(arch):
     rcfg, cfg = _cfgs(arch)
     ref, _ = ref_tf.init_params(rcfg, jax.random.key(0))
@@ -93,8 +101,7 @@ def test_init_params_is_seeded_and_truncated():
     assert abs(float(wq.std()) / std - 0.88) < 0.05  # std of N(0,1) cut at 2
 
 
-@pytest.mark.parametrize("arch", ["dbrx-132b", "deepseek-v3-671b",
-                                  "mamba2-2.7b", "zamba2-1.2b"])
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-1.2b"])
 def test_unported_families_raise(arch):
     _, cfg = _cfgs(arch)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -120,6 +127,49 @@ def test_params_from_numpy_carries_leaves_and_bf16_bits():
                                   bf.view(np.int16))
     with pytest.raises(TypeError, match="numpy array"):
         tensor_from_numpy(jnp.zeros(3))
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b+dense1", "deepseek-v3-671b"])
+def test_params_from_numpy_carries_moe_and_mla_trees(arch):
+    """Every leaf of an MoE tree (router, expert stacks, shared expert,
+    leading dense layers) and of an MLA tree (latent projections and
+    norms, bfloat16 storage) arrives with its shape, dtype and bits."""
+    rcfg, cfg = _cfgs(arch)
+    ref, _ = ref_tf.init_params(rcfg, jax.random.key(2))
+    tree = _np(ref)
+    got = params_from_numpy(tree, "cpu")
+    flat_ref = jax.tree_util.tree_flatten_with_path(tree)[0]
+    assert len(flat_ref) == len(jax.tree.leaves(got))
+    for path, want in flat_ref:
+        leaf = got
+        for key in path:
+            leaf = leaf[key.key]
+        assert str(leaf.dtype).removeprefix("torch.") == str(want.dtype)
+        bits = {2: np.int16, 4: np.int32}[want.dtype.itemsize]
+        np.testing.assert_array_equal(
+            leaf.view({2: torch.int16, 4: torch.int32}[want.dtype.itemsize])
+            .numpy(), want.view(bits))
+    names = set(got["layers"]["mlp"]) | set(got["layers"]["attn"])
+    assert {"router", "w_gate", "w_up", "w_down"} <= names
+    if cfg.mla:
+        assert {"w_dkv", "kv_norm", "w_uk", "w_uv"} <= names
+        assert "shared" in got["layers"]["mlp"]
+    assert "dense_layers" in got
+
+
+def test_init_params_draws_moe_leaves_in_param_dtype():
+    """A bfloat16-storage MoE config is drawn straight into bfloat16 (no
+    float32 copy of the expert stacks) and keeps the truncated normal."""
+    _, cfg = _cfgs("deepseek-v3-671b")
+    p = tf.init_params(cfg, torch.Generator().manual_seed(4), device="cpu")
+    w = p["layers"]["mlp"]["w_gate"]
+    assert w.dtype == torch.bfloat16
+    assert w.shape == (cfg.n_layers - cfg.first_k_dense, cfg.n_experts,
+                       cfg.d_model, cfg.moe_ff)
+    std = 1 / np.sqrt(cfg.d_model)
+    assert float(w.float().abs().max()) <= 2 * std * (1 + 2 ** -8)
+    assert abs(float(w.float().std()) / std - 0.88) < 0.05
+    assert p["dense_layers"]["attn"]["kv_norm"].dtype == torch.bfloat16
 
 
 def test_compute_params_casts_matrices_once():
@@ -249,11 +299,14 @@ def _ragged_both(arch, dtype, steps=4, b=3, max_len=16):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "musicgen-medium",
-                                  "qwen1.5-110b"])
+                                  "qwen1.5-110b", "dbrx-132b",
+                                  "dbrx-132b+dense1"])
 def test_decode_step_ragged_matches_reference_float32(arch):
     """Several ragged steps (slots at lengths 0, 3 and 9): logits and the
     cache within the float32 tolerance.  qwen3: qk-norm, RoPE, GQA, tied
-    embeddings; musicgen: sinusoidal positions, gelu; qwen1.5: QKV bias."""
+    embeddings; musicgen: sinusoidal positions, gelu; qwen1.5: QKV bias;
+    dbrx: MoE layers (softmax routing, dropless dispatch), also after one
+    leading dense layer."""
     out, cache, rcache = _ragged_both(arch, "float32")
     for got, want in out:
         _close(got, want)
@@ -263,6 +316,13 @@ def test_decode_step_ragged_matches_reference_float32(arch):
 
 def test_decode_step_ragged_matches_reference_bf16():
     out, _, _ = _ragged_both("qwen3-0.6b", "bfloat16")
+    for got, want in out:
+        _close(got, want, BF16_TOL)
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "dbrx-132b+dense1"])
+def test_moe_decode_step_ragged_matches_reference_bf16(arch):
+    out, _, _ = _ragged_both(arch, "bfloat16")
     for got, want in out:
         _close(got, want, BF16_TOL)
 
@@ -290,3 +350,57 @@ def test_entry_points_default_to_the_card():
         else:
             with pytest.raises((RuntimeError, AssertionError)):
                 call()
+
+
+# --- the lock-step decode step ----------------------------------------------------
+
+
+def _lockstep_both(arch, dtype, steps=5, b=3, max_len=12):
+    rcfg, cfg = _cfgs(arch, dtype)
+    cache_dtype = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    ref_params, _ = ref_tf.init_params(rcfg, jax.random.key(0))
+    params = tf.compute_params(cfg, params_from_numpy(_np(ref_params), "cpu"))
+    rcache = ref_tf.init_cache(rcfg, b, max_len, dtype=cache_dtype)
+    cache = tf.init_cache(cfg, b, max_len, dtype=getattr(torch, dtype),
+                          device="cpu")
+    assert cache.kind == rcache.kind
+    for got, want in zip(cache.data, rcache.data):
+        assert tuple(got.shape) == want.shape
+    step = jax.jit(lambda p, c, t: ref_tf.decode_step(rcfg, p, c, t))
+    rng = _rng(7)
+    out = []
+    for i in range(steps):
+        tok = rng.integers(0, rcfg.vocab, (b, 1)).astype(np.int32)
+        want, rcache = step(ref_params, rcache, jnp.asarray(tok))
+        got, cache = tf.decode_step(cfg, params, cache, torch.from_numpy(tok))
+        assert got.dtype == torch.float32 and got.shape == (b, rcfg.vocab)
+        assert int(cache.length) == i + 1
+        out.append((got, want))
+    return out, cache, rcache
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "deepseek-v3-671b"])
+def test_decode_step_lockstep_matches_reference_float32(arch):
+    """Lock-step steps at one shared position: qwen3 on the gqa cache;
+    deepseek-v3 on the mla cache (absorbed MLA decode, one leading dense
+    layer, then MoE layers with sigmoid routing and a shared expert)."""
+    out, cache, rcache = _lockstep_both(arch, "float32")
+    for got, want in out:
+        _close(got, want)
+    for got, want in zip(cache.data, rcache.data):
+        _close(got, want)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "deepseek-v3-671b"])
+def test_decode_step_lockstep_matches_reference_bf16(arch):
+    out, _, _ = _lockstep_both(arch, "bfloat16")
+    for got, want in out:
+        _close(got, want, BF16_TOL)
+
+
+def test_lockstep_rejects_ssm_caches():
+    _, cfg = _cfgs("qwen3-0.6b")
+    cache = tf.init_cache(cfg, 1, 4, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tf.decode_step(cfg, {}, tf.Cache("ssm", cache.data, cache.length),
+                       torch.zeros((1, 1), dtype=torch.long))

@@ -12,6 +12,7 @@ two models' logits agree within 1e-5 of the largest, so a smaller gap may
 flip the arg-max); the test prints every waiver.
 """
 
+import argparse
 import dataclasses
 import os
 import pathlib
@@ -26,9 +27,11 @@ import jax.numpy as jnp
 from _prop import given, settings, st
 
 from repro.configs.registry import ARCHS as REF_ARCHS, smoke_config as ref_smoke
+from repro.launch import serve as ref_serve
 from repro.models.transformer import init_params as ref_init_params
 from repro.serving import DecodeEngine as RefEngine
 from repro_torch.configs.registry import ARCHS, smoke_config
+from repro_torch.launch import serve
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.transformer import init_params
 from repro_torch.serving import DecodeEngine, KVPool, Request, Scheduler
@@ -111,6 +114,14 @@ def test_pool_refuses_other_cache_families():
         KVPool(cfg, capacity=2, max_len=8, device="cpu")
 
 
+def test_pool_refuses_the_mla_cache():
+    """MLA caches have no per-slot positions: deepseek-v3 is served on
+    the lock-step path, never through the pool."""
+    cfg = smoke_config(ARCHS["deepseek-v3-671b"])
+    with pytest.raises(NotImplementedError, match="lock-step"):
+        KVPool(cfg, capacity=2, max_len=8, device="cpu")
+
+
 @given(st.data())
 @settings(max_examples=15, deadline=None)
 def test_no_slot_leak_random_traces(data):
@@ -163,9 +174,11 @@ class _RefRecorder(RefEngine):
 
 
 @pytest.mark.filterwarnings("ignore:scatter inputs have incompatible types")
-def test_greedy_streams_match_reference_engine():
-    rcfg = dataclasses.replace(ref_smoke(REF_ARCHS["qwen3-0.6b"]), dtype="float32")
-    cfg = dataclasses.replace(smoke_config(ARCHS["qwen3-0.6b"]), dtype="float32")
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "dbrx-132b"])
+def test_greedy_streams_match_reference_engine(arch):
+    """qwen3: dense GQA; dbrx: MoE layers with dropless dispatch."""
+    rcfg = dataclasses.replace(ref_smoke(REF_ARCHS[arch]), dtype="float32")
+    cfg = dataclasses.replace(smoke_config(ARCHS[arch]), dtype="float32")
     ref_params, _ = ref_init_params(rcfg, jax.random.key(0))
     params = params_from_numpy(jax.tree.map(np.asarray, ref_params), "cpu")
     kw = dict(max_len=24, max_batch=3, queue_depth=8, sampler="greedy")
@@ -193,6 +206,35 @@ def test_greedy_streams_match_reference_engine():
     print(f"greedy streams: {len(want)} requests, "
           f"{sum(map(len, want.values()))} tokens, waived {waived}")
     assert len(waived) <= 1
+
+
+def test_greedy_lockstep_streams_match_reference():
+    """deepseek-v3 smoke (MLA cache, one leading dense layer, sigmoid
+    routing, a shared expert) on the lock-step path: the port's
+    ``_serve_lockstep`` against the reference's, same prompts, float32."""
+    rcfg = dataclasses.replace(ref_smoke(REF_ARCHS["deepseek-v3-671b"]),
+                               dtype="float32")
+    cfg = dataclasses.replace(smoke_config(ARCHS["deepseek-v3-671b"]),
+                              dtype="float32")
+    ref_params, _ = ref_init_params(rcfg, jax.random.key(0))
+    params = params_from_numpy(jax.tree.map(np.asarray, ref_params), "cpu")
+    args = argparse.Namespace(max_batch=0, prompt_len=5, tokens=8,
+                              sampler="greedy", seed=3, profile_steps=0)
+    want = ref_serve._serve_lockstep(rcfg, ref_params, args, None)
+    got = serve._serve_lockstep(cfg, params, args, "cpu")
+    assert len(want) == rcfg.max_batch
+    assert got == want
+
+
+def test_lockstep_decoder_checks():
+    cfg = smoke_config(ARCHS["deepseek-v3-671b"])
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(ValueError, match="unknown sampler"):
+        serve.LockstepDecoder(cfg, params, batch=2, max_len=8, sampler="beam")
+    dec = serve.LockstepDecoder(cfg, params, batch=2, max_len=8, top_k=8)
+    out = dec.generate(np.array([[1, 2, 3], [4, 5, 6]]), 5)
+    assert out.shape == (2, 5) and int(dec.cache.length) == 8
+    assert ((out >= 0) & (out < cfg.vocab)).all()
 
 
 # --- the port's determinism contract ------------------------------------------------
@@ -256,3 +298,27 @@ def test_serve_launcher_smoke_on_cpu():
         capture_output=True, text=True, timeout=300, env=env, cwd=REPO)
     assert res.returncode == 0, res.stderr
     assert "served 4 requests / 24 tokens" in res.stdout
+
+
+@pytest.mark.parametrize("arch,extra,expect", [
+    ("dbrx-132b", ["--moe-dispatch", "dropless"], "served 4 requests / 24 tokens"),
+    ("dbrx-132b", ["--moe-dispatch", "capacity"], "served 4 requests / 24 tokens"),
+    ("deepseek-v3-671b", [], "generated (4, 6) tokens"),
+    ("mamba2-2.7b", [], "NotImplementedError"),
+])
+def test_serve_launcher_moe_and_mla_on_cpu(arch, extra, expect):
+    """dbrx (MoE, gqa cache) serves on the continuous path with either
+    dispatch, deepseek-v3 (MLA cache) on the lock-step path; SSM archs
+    raise naming ROADMAP."""
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src")}
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
+         "--smoke", "--device", "cpu", "--requests", "4", "--tokens", "6",
+         *extra],
+        capture_output=True, text=True, timeout=300, env=env, cwd=REPO)
+    if expect == "NotImplementedError":
+        assert res.returncode != 0
+        assert "NotImplementedError" in res.stderr and "ROADMAP" in res.stderr
+    else:
+        assert res.returncode == 0, res.stderr
+        assert expect in res.stdout
