@@ -53,7 +53,26 @@ full data size through the entry points a user calls:
                    lock-step loop (batch 4, 32-token prompt, 32 new
                    tokens), each with ``topk`` on both merge backends
                    (equal streams) and ``greedy``, whose grouped launches
-                   come from the MoE layers alone and must be above 0.
+                   come from the MoE layers alone and must be above 0;
+8. ssm           — mamba2-2.7b (64 layers, ssm cache) and zamba2-1.2b (38
+                   layers, hybrid cache: a shared attention block after
+                   every sixth layer) at their published widths and
+                   depths, float32 storage, random weights: the lock-step
+                   loop (batch 8, 32-token prompt, 32 new tokens) with
+                   ``topk`` on both merge backends (equal streams) and
+                   ``greedy``, a profile of five steady steps, every
+                   grouped launch of one more held against its plain
+                   version, the step's byte bound (bf16 weights read once,
+                   the conv and SSM states read and written) beside its
+                   time, eight bf16 decode steps against eight float32
+                   ones (relative L2 error of the logits under 0.1, every
+                   logit and SSM state finite) and, on zamba2, the launches
+                   of a generate with obs off and on; then the launcher
+                   ``python -m repro_torch.launch.serve --arch zamba2-1.2b
+                   --metrics-dir <tmp> --profile-steps 2`` in a subprocess,
+                   whose JSONL must hold ``serve.*`` and
+                   ``kernels.dispatch_calls`` records with step labels and
+                   whose ``<tmp>/profile`` must hold a trace.
 
 Every phase sets the kernels' launch counters to 0 just before its main
 path and reads them just after; it holds each kernel's output against the
@@ -117,6 +136,9 @@ KERNELS = ("merge_tile", "merge_kway_tile", "merge_kway_tile_groups")
 # card beside the phase's other tensors (PERF.md, section 4).
 MOE_MODELS = (("dbrx-132b", {"n_layers": 4, "param_dtype": "bfloat16"}),
               ("deepseek-v3-671b", {"n_layers": 5}))
+# Phase ssm: both models at their published widths and depths, float32
+# storage as published (PERF.md, section 4).
+SSM_MODELS = ("mamba2-2.7b", "zamba2-1.2b")
 # (name, tokens, top-k, experts, router scoring): 32,768 assignments each
 MOE_DISPATCH = (("dbrx", 8192, 4, 16, "softmax"),
                 ("deepseek-v3", 4096, 8, 256, "sigmoid"))
@@ -948,7 +970,7 @@ class Smoke:
             self.serve_runs(cfg, params, 16 >> min(self.cut, 3), f"moe serve {name}",
                             greedy_launches=True)
         else:
-            self.serve_lockstep(cfg, params)
+            self.serve_lockstep(cfg, params, "moe serve")
 
     def moe_layer(self, cfg, params) -> None:
         """The first MoE layer's FFN on 64 bfloat16 tokens: dropless against
@@ -992,13 +1014,17 @@ class Smoke:
             raise AssertionError(f"moe layer {cfg.name}: errors {err_dense}, "
                                  f"{err_cap}, finite {finite}, launches {launched}")
 
-    def serve_lockstep(self, cfg, params) -> None:
+    def serve_lockstep(self, cfg, params, phase: str, *,
+                       greedy_launches: bool = True) -> None:
         """The launcher's lock-step loop (``LockstepDecoder``) on
         ``cfg.max_batch`` rows, a 32-token prompt and 32 new tokens:
         ``topk`` on the ``cuda`` and ``torch`` merge backends (every row's
         stream must be equal), then ``greedy``; both count their grouped
-        launches, which must be above 0.  Then a profile of five steady
-        steps (sample + decode)."""
+        launches, which must be above 0 (the greedy run's only when
+        ``greedy_launches``: its MoE layers launch them).  Every logit, and
+        an SSM cache's float32 state, must stay finite.  Then a profile of
+        five steady steps (sample + decode) and every grouped launch of one
+        more held against its plain version."""
         import numpy as np
         from repro_torch.launch.serve import LockstepDecoder
         from repro_torch.models.transformer import cache_kind
@@ -1008,7 +1034,7 @@ class Smoke:
         batch, prompt_len, n_new = cfg.max_batch, 32, 32
         prompts = np.random.default_rng(20131303).integers(
             1, cfg.vocab, (batch, prompt_len))
-        log(f"phase moe serve {cfg.name}: lock-step decode ({cfg.n_layers} layers, "
+        log(f"phase {phase} {cfg.name}: lock-step decode ({cfg.n_layers} layers, "
             f"{cache_kind(cfg)} cache), batch {batch}, prompt {prompt_len}, "
             f"{n_new} new tokens")
 
@@ -1047,9 +1073,13 @@ class Smoke:
                 out = dec.generate(p, new)
                 torch.cuda.synchronize()
                 secs = time.perf_counter() - t0
-            if not bool(dec.finite) or int(dec.cache.length) != p.shape[1] + new:
+            state_finite = dec.cache.kind not in ("ssm", "hybrid") or bool(
+                torch.isfinite(dec.cache.data[1]).all())
+            if not (bool(dec.finite) and state_finite) \
+                    or int(dec.cache.length) != p.shape[1] + new:
                 raise AssertionError(f"lock-step {sampler}/{backend}: finite "
-                                     f"{bool(dec.finite)}, length {int(dec.cache.length)}")
+                                     f"{bool(dec.finite)}, state finite {state_finite}, "
+                                     f"length {int(dec.cache.length)}")
             # a generated step: its sample, then the decode of the sampled token
             times = [(d[0].elapsed_time(d[1]), s[0].elapsed_time(s[1]))
                      for d, s in zip(dec.decodes[p.shape[1]:], dec.samples)]
@@ -1066,13 +1096,13 @@ class Smoke:
         differ = [b for b in got if got[b] != plain[b]]
         for label, res, st, sec, tm_ in (("topk", got, steps, secs, times),
                                          ("greedy", greedy, g_steps, g_secs, g_times)):
-            log_steps(f"moe serve {cfg.name} lock-step {label}", res, st, sec, tm_)
-        log(f"  moe serve {cfg.name} lock-step: merge_kway_tile_groups launches "
+            log_steps(f"{phase} {cfg.name} lock-step {label}", res, st, sec, tm_)
+        log(f"  {phase} {cfg.name} lock-step: merge_kway_tile_groups launches "
             f"{launched} (topk), {g_launched} (greedy); {len(differ)} of {batch} "
             f"token streams differ between the cuda and torch merge backends")
         bad_tok = [b for res in (got, greedy) for b, t in res.items()
                    if len(t) != n_new or not all(0 <= v < cfg.vocab for v in t)]
-        if not launched or not g_launched or differ or bad_tok:
+        if not launched or (greedy_launches and not g_launched) or differ or bad_tok:
             raise AssertionError(f"lock-step {cfg.name}: launches {launched}/"
                                  f"{g_launched}, streams differ {differ}, bad "
                                  f"rows {bad_tok}")
@@ -1096,6 +1126,154 @@ class Smoke:
             self.log_profile(f"lock-step batch {batch}",
                              lambda: [step() for _ in range(5)])
         self.record_grouped(step, lambda g, kk, w: f"{cfg.name} step ({g},{kk},{w})")
+        return times
+
+    # -- phase 8: the SSM and hybrid families -------------------------------------
+
+    def phase_ssm(self) -> None:
+        import gc
+
+        for name in SSM_MODELS:
+            self.ssm_model(name)  # its weights are freed on return
+            gc.collect()
+            self.torch.cuda.empty_cache()
+        self.ssm_launcher_obs()
+
+    def ssm_model(self, name: str) -> None:
+        """One model of the SSM family at its published widths and depth,
+        float32 storage as published, random weights: the launcher's
+        lock-step loop, the step's byte bound beside its time, a bf16
+        decode step's logits against a float32 one, and (zamba2) the
+        launches a step with obs on and off."""
+        import dataclasses
+
+        from repro_torch.configs.registry import ARCHS
+        from repro_torch.models import transformer as tm
+
+        torch = self.torch
+        cfg = ARCHS[name]
+        gen = torch.Generator(device=self.dev).manual_seed(20131303)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = tm.init_params(cfg, gen, device=self.dev)
+        torch.cuda.synchronize()
+        log(f"phase ssm: {name} at full width and depth, no cut "
+            f"({sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B params, "
+            f"{cfg.n_layers} layers, d {cfg.d_model}, {tm.cache_kind(cfg)} cache, "
+            f"{cfg.param_dtype} storage, {torch.cuda.memory_allocated() / 1e9:.1f} GB "
+            f"allocated, drawn in {time.perf_counter() - t0:.1f} s)")
+        times = self.serve_lockstep(cfg, params, "ssm serve", greedy_launches=False)
+
+        # Byte bound of a steady step at batch max_batch: the compute copy of
+        # the weights read once, the conv and SSM states read and written.
+        cp = tm.compute_params(cfg, params)
+        cache = tm.init_cache(cfg, cfg.max_batch, 64, device=self.dev)
+        weights = sum(t.numel() * t.element_size() for t in _leaves(cp))
+        state = sum(t.numel() * t.element_size() for t in cache.data[:2])
+        bound_ms = (weights + 2 * state) / HBM_BYTES_PER_S * 1e3
+        step_ms = statistics.median(a + b for a, b in times)
+        log(f"  ssm {name} step bound: {weights / 1e9:.3f} GB of weights + 2 x "
+            f"{state / 1e9:.3f} GB of states = {bound_ms:.3f} ms at 3.35 TB/s; "
+            f"measured step median {step_ms:.3f} ms ({bound_ms / step_ms:.3f} of "
+            f"the bound's rate)")
+        del cp, cache
+        self.ssm_logits(cfg, params)
+        if tm.cache_kind(cfg) == "hybrid":
+            self.obs_launches(cfg, params)
+
+    def ssm_logits(self, cfg, params) -> None:
+        """Eight bf16 ``decode_step``s against eight float32 ones of the same
+        weights and tokens: the last logits' relative L2 error under 0.1,
+        every logit and the float32 SSM state finite."""
+        import dataclasses
+
+        from repro_torch.models import transformer as tm
+
+        torch = self.torch
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        b, steps = cfg.max_batch, 8
+        toks = torch.randint(0, cfg.vocab, (steps, b, 1), generator=self.gen,
+                             device=self.dev)
+        logits, finite = {}, True
+        for c, cache_dtype in ((cfg, torch.bfloat16), (cfg32, torch.float32)):
+            p = tm.compute_params(c, params)
+            cache = tm.init_cache(c, b, steps, dtype=cache_dtype, device=self.dev)
+            for s in range(steps):
+                out, cache = tm.decode_step(c, p, cache, toks[s])
+                finite &= bool(torch.isfinite(out).all())
+            finite &= bool(torch.isfinite(cache.data[1]).all())
+            logits[c.dtype] = out
+            del p, cache
+        lo, hi = logits["bfloat16"], logits["float32"]
+        rel = float((lo - hi).norm() / hi.norm())
+        log(f"  decode_step {cfg.name} bf16 vs float32 logits ({b}, {cfg.vocab}) "
+            f"after {steps} steps: relative L2 error {rel:.5f} (limit 0.1), "
+            f"finite {finite}, argmax agreement "
+            f"{float((lo.argmax(1) == hi.argmax(1)).float().mean()):.3f}")
+        if not finite or not rel < 0.1 or lo.shape != (b, cfg.vocab):
+            raise AssertionError(f"{cfg.name} logits: relative error {rel}, "
+                                 f"finite {finite}")
+
+    def obs_launches(self, cfg, params) -> None:
+        """Kernel launches of a lock-step generate (one prompt token, five
+        new) with obs off and on (JSONL into a temporary directory)."""
+        import numpy as np
+        from repro_torch import obs
+        from repro_torch.launch.serve import LockstepDecoder
+
+        prompts = np.random.default_rng(1).integers(1, cfg.vocab, (cfg.max_batch, 1))
+        counts = {}
+        with backend_env(self.ops, "cuda"), tempfile.TemporaryDirectory() as tmp:
+            for label in ("off", "on"):
+                dec = LockstepDecoder(cfg, params, batch=cfg.max_batch, max_len=6,
+                                      top_k=50, seed=7, device=self.dev)
+                dec.generate(prompts, 5)  # warm-up of this decoder
+                dec.cache.length.zero_()
+                if label == "on":
+                    obs.enable(metrics_dir=tmp)
+                try:
+                    _, _, kernels = self.device_profile(lambda: dec.generate(prompts, 5))
+                finally:
+                    obs.disable()
+                counts[label] = sum(c for c, _ in kernels.values())
+                del dec
+        log(f"  obs {cfg.name}: a generate of 6 decodes and 5 samples launches "
+            f"{counts['off']} kernels with obs off ({counts['off'] / 6:.0f} a "
+            f"step), {counts['on']} with obs on ({counts['on'] / 6:.0f} a step: "
+            f"a token snapshot and the flush's copy to the host a step)")
+
+    def ssm_launcher_obs(self) -> None:
+        """``python -m repro_torch.launch.serve --arch zamba2-1.2b
+        --metrics-dir <tmp> --profile-steps 2`` in a subprocess on the card:
+        the JSONL must hold ``serve.*`` and ``kernels.dispatch_calls``
+        records with step labels, and ``<tmp>/profile`` a trace."""
+        with tempfile.TemporaryDirectory() as tmp:
+            cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+                   "zamba2-1.2b", "--metrics-dir", tmp, "--profile-steps", "2"]
+            env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+            t0 = time.perf_counter()
+            res = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                                 env=env, cwd=ROOT)
+            secs = time.perf_counter() - t0
+            if res.returncode:
+                raise AssertionError(f"launcher exited {res.returncode}:\n"
+                                     f"{res.stderr[-3000:]}")
+            recs = [json.loads(line) for line in
+                    Path(tmp, "metrics.jsonl").read_text().splitlines()]
+            serve = [r for r in recs if r["metric"].startswith("serve.") and "step" in r]
+            calls = [r for r in recs if r["metric"] == "kernels.dispatch_calls"
+                     and "step" in r]
+            traces = sorted(Path(tmp, "profile").glob("*.pt.trace.json"))
+            trace_mb = sum(t.stat().st_size for t in traces) / 1e6
+            out = [line for line in res.stdout.splitlines() if "generated" in line]
+            log(f"  launcher obs check: {' '.join(cmd[1:4])} ... in {secs:.1f} s: "
+                f"{out[0].strip() if out else 'no result line'}; {len(recs)} records, "
+                f"{len(serve)} serve.* with a step label (steps "
+                f"{sorted({r['step'] for r in serve})[:3]}...), {len(calls)} "
+                f"kernels.dispatch_calls with a step label, {len(traces)} trace "
+                f"file(s) of {trace_mb:.1f} MB under profile/")
+            if not (serve and calls and traces and out):
+                raise AssertionError("launcher obs check: missing records or trace")
 
     # -- report -------------------------------------------------------------
 
@@ -1162,8 +1340,9 @@ def _index(tree, i: int):
 
 
 def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
+    """The tensors of a tree of dicts and lists."""
+    if isinstance(tree, (dict, list)):
+        for v in tree.values() if isinstance(tree, dict) else tree:
             yield from _leaves(v)
     else:
         yield tree
@@ -1216,7 +1395,7 @@ def main() -> int:
     t_start = time.perf_counter()
     for phase in (smoke.phase_build, smoke.phase_merge, smoke.phase_merge_kway,
                   smoke.phase_merge_window, smoke.phase_external,
-                  smoke.phase_serve, smoke.phase_moe):
+                  smoke.phase_serve, smoke.phase_moe, smoke.phase_ssm):
         t0 = time.perf_counter()
         try:
             phase()

@@ -1,7 +1,7 @@
 """Core: co-ranking and load-balanced stable merge (torch port).
 
-Exports the ported part of ``repro.core``; the baselines and the
-distributed shim are not ported yet.
+Exports the ported part of ``repro.core``; the distributed shim is not
+ported yet.
 """
 
 from repro_torch.core.corank import CoRankResult, co_rank, co_rank_batch
@@ -31,6 +31,12 @@ from repro_torch.core.topk import (
     merge_topk_batch,
     tournament_rounds,
 )
+from repro_torch.core.baselines import (
+    equidistant_partition,
+    merge_equidistant,
+    merge_lexicographic,
+    partition_sizes_equidistant,
+)
 
 __all__ = [
     "CoRankResult",
@@ -54,4 +60,8 @@ __all__ = [
     "merge_topk",
     "merge_topk_batch",
     "tournament_rounds",
+    "equidistant_partition",
+    "merge_equidistant",
+    "merge_lexicographic",
+    "partition_sizes_equidistant",
 ]

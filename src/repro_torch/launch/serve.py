@@ -12,25 +12,31 @@ advances every active slot a token at its own position, and the whole
 batch's next tokens are drawn with the batched merge sampler.  Finished
 slots are recycled at once.
 
-Archs with an ``mla`` cache (deepseek-v3) take the lock-step path
+Archs with an ``mla`` cache (deepseek-v3), an ``ssm`` cache (mamba2) or
+a ``hybrid`` one (zamba2) take the lock-step path
 (:class:`LockstepDecoder`): a fixed batch of ``max_batch`` rows starts
 together, the prompt is fed one token per ``decode_step``, and each row's
-tokens are drawn with the per-request samplers.  SSM/hybrid archs raise
-(ROADMAP.md, Queue 1 item 3).  ``--moe-dispatch`` overrides the MoE
-configs' dispatch.  Weights are random, from ``init_params`` with a
-seeded generator.  The reference's ``--metrics-dir`` and
-``--profile-steps`` wait for the ``obs`` port.
+tokens are drawn with the per-request samplers.  ``--moe-dispatch``
+overrides the MoE configs' dispatch.  Weights are random, from
+``init_params`` with a seeded generator.
+
+``--metrics-dir`` turns on ``repro_torch.obs`` (JSONL records under that
+directory, stamped with the decode step and flushed once a step);
+``--profile-steps N`` adds a ``torch.profiler`` trace of the first N
+steps under ``<metrics-dir>/profile``.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.registry import ARCHS, smoke_config
 from repro_torch.models.transformer import (
     cache_kind,
@@ -48,7 +54,26 @@ from repro_torch.serving.sampling import (
 )
 
 
-def _serve_continuous(cfg, params, args, device):
+class _Profile:
+    """The ``--profile-steps`` window: a trace of the first ``steps``
+    decode steps under ``<metrics_dir>/profile``."""
+
+    def __init__(self, metrics_dir: str, steps: int):
+        self.steps = steps
+        self.on = steps > 0 and obs.start_profile(
+            os.path.join(metrics_dir or ".", "profile"))
+
+    def after(self, done: int) -> None:
+        if self.on and done >= self.steps:
+            self.close()
+
+    def close(self) -> None:
+        if self.on:
+            obs.stop_profile()
+            self.on = False
+
+
+def _serve_continuous(cfg, params, args, device, metrics_dir=""):
     """Continuous-batching path (gqa-cache archs)."""
     max_len = args.prompt_len + args.tokens
     eng = DecodeEngine(
@@ -66,6 +91,7 @@ def _serve_continuous(cfg, params, args, device):
         for i in range(args.requests)
     ]
 
+    profile = _Profile(metrics_dir, args.profile_steps)
     t0 = time.time()
     i = 0
     while True:
@@ -75,10 +101,18 @@ def _serve_continuous(cfg, params, args, device):
             i += 1
         if eng.pending == 0 and i == len(arrivals):
             break
-        info = eng.step()
+        obs.set_step(eng.steps)
+        with obs.step_span("decode", eng.steps):
+            info = eng.step()
+        if obs.enabled():
+            obs.flush()
+        profile.after(eng.steps)
         if info["completed"] and args.verbose:
             print(f"step {eng.steps}: finished rids {info['completed']} "
                   f"(active {info['active']})")
+    profile.close()
+    if obs.enabled():
+        obs.flush()
 
     dt = time.time() - t0
     results = eng.results
@@ -130,25 +164,41 @@ class LockstepDecoder:
         return sample_topp(keys, logits, p=0.9, k=min(64, self.cfg.vocab),
                            fanout=self.cfg.fanout)
 
-    def generate(self, prompts: np.ndarray, n_tokens: int) -> np.ndarray:
+    def generate(self, prompts: np.ndarray, n_tokens: int,
+                 after_step=None) -> np.ndarray:
         """``prompts`` ``(batch, prompt_len)`` -> ``(batch, n_tokens)``
-        generated token ids; the cache ends at ``prompt_len + n_tokens``."""
+        generated token ids; the cache ends at ``prompt_len + n_tokens``.
+        The prompt feed runs in the ``serve.prefill`` host span and each
+        generated step (sample, then decode) in ``step_span("decode", i)``
+        with the step label set and its tokens recorded
+        (``serve.sampled_tokens``, a snapshot on the device); obs is
+        flushed after each step, then ``after_step(i + 1)`` is called if
+        given."""
         tokens = torch.from_numpy(np.asarray(prompts, np.int64)).to(self.device)
         logits = None
-        for t in range(tokens.shape[1]):
-            logits = self._decode(tokens[:, t:t + 1])
+        with obs.host_span("serve.prefill"):
+            for t in range(tokens.shape[1]):
+                logits = self._decode(tokens[:, t:t + 1])
         rows = torch.arange(self.batch, device=self.device)
         out = []
         for i in range(n_tokens):
-            nxt = self._sample(request_keys(self.seed, rows,
-                                            torch.full_like(rows, i)), logits)
-            out.append(nxt)
-            logits = self._decode(nxt[:, None].long())
+            obs.set_step(i)
+            with obs.step_span("decode", i):
+                nxt = self._sample(request_keys(
+                    self.seed, rows, torch.full_like(rows, i)), logits)
+                out.append(nxt)
+                obs.gauge("serve.sampled_tokens", nxt, batch=self.batch)
+                logits = self._decode(nxt[:, None].long())
+            if obs.enabled():
+                obs.flush()
+            if after_step is not None:
+                after_step(i + 1)
         return torch.stack(out, dim=1).cpu().numpy()
 
 
-def _serve_lockstep(cfg, params, args, device):
-    """Lock-step path (mla-cache archs): the reference's fixed batch."""
+def _serve_lockstep(cfg, params, args, device, metrics_dir=""):
+    """Lock-step path (mla, ssm and hybrid caches): the reference's fixed
+    batch."""
     batch = args.max_batch or cfg.max_batch
     max_len = args.prompt_len + args.tokens
     dec = LockstepDecoder(cfg, params, batch=batch, max_len=max_len,
@@ -156,9 +206,13 @@ def _serve_lockstep(cfg, params, args, device):
                           device=device)
     rng = np.random.default_rng(0)
     prompts = rng.integers(1, cfg.vocab, (batch, args.prompt_len))
+    profile = _Profile(metrics_dir, args.profile_steps)
     t0 = time.time()
-    gen = dec.generate(prompts, args.tokens)
+    gen = dec.generate(prompts, args.tokens, after_step=profile.after)
     dt = time.time() - t0
+    profile.close()
+    if obs.enabled():
+        obs.flush()
     print(f"generated {gen.shape} tokens in {dt:.2f}s "
           f"({batch * args.tokens / dt:.1f} tok/s) on {device} [lock-step]")
     for b in range(min(batch, 2)):
@@ -194,6 +248,12 @@ def main(argv=None):
     ap.add_argument("--moe-dispatch", choices=("capacity", "dropless"),
                     default=None,
                     help="override ModelConfig.moe_dispatch (MoE archs)")
+    ap.add_argument("--metrics-dir", default="",
+                    help="enable repro_torch.obs metrics; JSONL lands here "
+                         "(overrides ModelConfig.metrics_dir)")
+    ap.add_argument("--profile-steps", type=int, default=0,
+                    help="write a torch.profiler trace of the first N "
+                         "decode steps (under <metrics-dir>/profile)")
     args = ap.parse_args(argv)
 
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -205,11 +265,18 @@ def main(argv=None):
         cfg = smoke_config(cfg)
     if args.moe_dispatch is not None:
         cfg = dataclasses.replace(cfg, moe_dispatch=args.moe_dispatch)
+    metrics_dir = args.metrics_dir or cfg.metrics_dir
+    if metrics_dir:
+        obs.enable(metrics_dir=metrics_dir)
     gen = torch.Generator(device=device).manual_seed(0)
     params = init_params(cfg, gen, device=device)
-    if cache_kind(cfg) == "gqa":
-        return _serve_continuous(cfg, params, args, device)
-    return _serve_lockstep(cfg, params, args, device)
+    serve = (_serve_continuous if cache_kind(cfg) == "gqa"
+             else _serve_lockstep)
+    try:
+        return serve(cfg, params, args, device, metrics_dir)
+    finally:
+        if metrics_dir:
+            obs.disable()
 
 
 if __name__ == "__main__":

@@ -1,18 +1,19 @@
 """Model assembly and decode (torch port of ``repro.models.transformer``).
 
-What is ported: ``init_params`` for the dense (``dense``, and the
+What is ported: ``init_params`` for every family -- dense (and the
 ``vlm``/``audio`` backbones, whose frontends are stubs in the reference
-too) and MoE families, with GQA or MLA attention and ``first_k_dense``
-leading dense layers; ``_cast_params``; the decode :class:`Cache`;
-``init_cache`` for the ``gqa`` and ``mla`` cache families; the
-continuous-batching step ``decode_step_ragged`` (``gqa`` caches) and the
-lock-step ``decode_step`` (``gqa`` and ``mla`` caches).  The SSM and
-hybrid families, ``prefill_logits`` and ``train_loss`` raise
-``NotImplementedError``: they are items of ROADMAP.md's Queue 1.
+too), MoE with GQA or MLA attention and ``first_k_dense`` leading dense
+layers, SSM (a Mamba2 stack) and hybrid (a Mamba2 stack with one shared
+attention block); ``_cast_params``; the decode :class:`Cache`;
+``init_cache`` for the ``gqa``, ``mla``, ``ssm`` and ``hybrid`` cache
+families; the continuous-batching step ``decode_step_ragged`` (``gqa``
+caches) and the lock-step ``decode_step`` (every cache family).
+``prefill_logits`` and ``train_loss`` are items of ROADMAP.md's Queue 1.
 
 Params are the reference's pytree as nested dicts of tensors, layers
 stacked on a leading axis (``dense_layers`` holds the leading dense layers
-of a ``first_k_dense`` MoE config, ``layers`` the rest).
+of a ``first_k_dense`` MoE config, ``layers`` the rest; a hybrid's
+``shared_attn`` block is one unstacked layer).
 :func:`compute_params` hands both stacks over as lists of per-layer trees,
 so a decode step indexes no stacked tensor, and casts the weights the
 reference casts on every use (those >= 2-D per layer) to the compute dtype
@@ -25,7 +26,7 @@ experts in float32.
 The decode steps update the cache tensors in place (the reference returns
 new ones): the ragged step writes slot ``s``'s entry at position
 ``lengths[s]`` of its own cache rows, the lock-step one every row's at the
-shared ``length``.
+shared ``length``; an SSM layer overwrites its conv and SSM states.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 
 __all__ = [
     "Cache",
@@ -50,9 +52,8 @@ __all__ = [
     "decode_step_ragged",
     "init_cache",
     "init_params",
+    "mamba_meta",
 ]
-
-_NOT_PORTED = "is not ported yet (ROADMAP.md, Queue 1 item 3)"
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -60,9 +61,6 @@ def _dtype(name: str) -> torch.dtype:
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.ssm:
-        raise NotImplementedError(
-            f"{cfg.name}: the SSM/hybrid family {_NOT_PORTED}")
     if cfg.moe and not cfg.use_merge_sort_dispatch:
         raise ValueError(
             f"{cfg.name}: the port dispatches with the co-rank merge sort "
@@ -74,10 +72,11 @@ def _check_ported(cfg: ModelConfig) -> None:
 # --------------------------------------------------------------------------
 
 
-def _layers_init(gen, cfg: ModelConfig, n: int, device, *, moe: bool):
-    """``n`` layers, each weight stacked on a leading axis: attention (GQA
-    or MLA), then an MoE FFN (``moe``) or the dense MLP."""
-    stack, dt = (n,), _dtype(cfg.param_dtype)
+def _layers_init(gen, cfg: ModelConfig, stack: tuple, device, *, moe: bool):
+    """Attention (GQA or MLA), then an MoE FFN (``moe``) or the dense MLP,
+    each weight with the leading axes ``stack``: ``(n,)`` for ``n`` stacked
+    layers, ``()`` for one unstacked layer (a hybrid's shared block)."""
+    dt = _dtype(cfg.param_dtype)
     if cfg.mla:
         ap = mla_mod.init_mla(
             gen, cfg.d_model, cfg.n_heads, q_lora_rank=cfg.q_lora_rank,
@@ -99,16 +98,27 @@ def _layers_init(gen, cfg: ModelConfig, n: int, device, *, moe: bool):
     else:
         mp = L.init_mlp(gen, cfg.d_model, cfg.d_ff, kind=cfg.mlp_kind,
                         device=device, layers=stack, dtype=dt)
-    ones = torch.ones((n, cfg.d_model), dtype=torch.float32, device=device)
+    ones = torch.ones((*stack, cfg.d_model), dtype=torch.float32, device=device)
     return {"attn": ap, "mlp": mp, "ln1": {"scale": ones},
             "ln2": {"scale": ones.clone()}}
 
 
+def _mamba_layers_init(gen, cfg: ModelConfig, device):
+    """The SSM stack: ``n_layers`` of ``{"mamba", "ln"}``, stacked."""
+    stack = (cfg.n_layers,)
+    mp, _ = ssm_mod.init_mamba2(
+        gen, cfg.d_model, expand=cfg.ssm_expand, headdim=cfg.ssm_headdim,
+        d_state=cfg.ssm_state, ngroups=cfg.ssm_ngroups, device=device,
+        layers=stack, dtype=_dtype(cfg.param_dtype))
+    return {"mamba": mp, "ln": {"scale": torch.ones(
+        (*stack, cfg.d_model), dtype=torch.float32, device=device)}}
+
+
 def init_params(cfg: ModelConfig, gen: torch.Generator, device="cuda"):
-    """Random weights of a dense or MoE config on ``device`` (the card
-    unless the caller passes ``"cpu"``), drawn from ``gen``, a generator on
-    that device: the reference's tree, dtypes and distributions, not its
-    numbers (torch's generators are not JAX's)."""
+    """Random weights of ``cfg`` on ``device`` (the card unless the caller
+    passes ``"cpu"``), drawn from ``gen``, a generator on that device: the
+    reference's tree, dtypes and distributions, not its numbers (torch's
+    generators are not JAX's)."""
     _check_ported(cfg)
     dt = _dtype(cfg.param_dtype)
     params: dict[str, Any] = {"embed": L.init_embedding(
@@ -120,13 +130,34 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device="cuda"):
     if cfg.frontend != "none":
         params["frontend_proj"] = L.truncated_normal(
             gen, (cfg.d_model, cfg.d_model), 0.02, dt, device=device)
+    if cfg.ssm:
+        params["layers"] = _mamba_layers_init(gen, cfg, device)
+        if cfg.attn_every:  # hybrid: one shared attention + MLP block
+            params["shared_attn"] = _layers_init(gen, cfg, (), device,
+                                                 moe=False)
+        return _cast_params(cfg, params)
     if cfg.moe and cfg.first_k_dense:
-        params["dense_layers"] = _layers_init(gen, cfg, cfg.first_k_dense,
+        params["dense_layers"] = _layers_init(gen, cfg, (cfg.first_k_dense,),
                                               device, moe=False)
     params["layers"] = _layers_init(
-        gen, cfg, cfg.n_layers - (cfg.first_k_dense if cfg.moe else 0),
+        gen, cfg, (cfg.n_layers - (cfg.first_k_dense if cfg.moe else 0),),
         device, moe=cfg.moe)
     return _cast_params(cfg, params)
+
+
+def mamba_meta(cfg: ModelConfig) -> dict:
+    """The Mamba2 block's dimensions for ``cfg`` (``init_mamba2``'s
+    ``meta``)."""
+    d_inner = cfg.ssm_expand * cfg.d_model
+    return dict(
+        d_inner=d_inner,
+        nheads=d_inner // cfg.ssm_headdim,
+        d_state=cfg.ssm_state,
+        ngroups=cfg.ssm_ngroups,
+        d_conv=4,
+        headdim=cfg.ssm_headdim,
+        conv_dim=d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state,
+    )
 
 
 def _map(fn, tree):
@@ -150,9 +181,11 @@ def _cast_params(cfg: ModelConfig, params):
 def compute_params(cfg: ModelConfig, params):
     """``params`` ready for decoding: ``layers`` (and ``dense_layers``) as
     lists of per-layer trees, and every weight that is >= 2-D *per layer*
-    (the matrices, the expert stacks, the embedding tables, the QKV biases)
-    in the compute dtype ``cfg.dtype`` -- the reference's per-use cast, done
-    once.  Norm scales keep their dtype."""
+    (the matrices, the expert stacks, the embedding tables, the QKV biases,
+    the Mamba2 conv weights) in the compute dtype ``cfg.dtype`` -- the
+    reference's per-use cast, done once.  Norm scales and the Mamba2
+    vectors keep their dtype; a hybrid's unstacked ``shared_attn`` block
+    is cast the same way."""
     dt = _dtype(cfg.dtype)
     out = dict(params)
     for name in ("dense_layers", "layers"):
@@ -198,22 +231,39 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     """Zeroed decode cache on ``device``, length a scalar 0.  ``gqa``: k
     and v ``(n_layers, batch, max_len, n_kv, head_dim)``; ``mla``: the
     latent ``(n_layers, batch, max_len, kv_lora_rank)`` and the rope key
-    ``(n_layers, batch, max_len, qk_rope_head_dim)``.  SSM and hybrid
-    caches raise."""
+    ``(n_layers, batch, max_len, qk_rope_head_dim)``; ``ssm``: the conv
+    state ``(n_layers, batch, 3, conv_dim)`` in ``dtype`` and the SSM state
+    ``(n_layers, batch, nheads, headdim, d_state)`` in float32; ``hybrid``:
+    those, then the shared block's k and v, one entry per application,
+    ``(n_layers // attn_every, batch, max_len, n_kv, head_dim)``."""
     kind = cache_kind(cfg)
     ll = cfg.n_layers
+    kv = ((batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim), dtype)
     if kind == "mla":
-        shapes = ((ll, batch, max_len, cfg.kv_lora_rank),
-                  (ll, batch, max_len, cfg.qk_rope_head_dim))
+        specs = [((ll, batch, max_len, cfg.kv_lora_rank), dtype),
+                 ((ll, batch, max_len, cfg.qk_rope_head_dim), dtype)]
     elif kind == "gqa":
-        shapes = ((ll, batch, max_len, cfg.n_kv_heads,
-                   cfg.resolved_head_dim),) * 2
+        specs = [((ll, *kv[0]), dtype)] * 2
     else:
-        raise NotImplementedError(
-            f"{cfg.name}: the {kind!r} decode cache {_NOT_PORTED}")
-    return Cache(kind, tuple(torch.zeros(s, dtype=dtype, device=device)
-                             for s in shapes),
+        meta = mamba_meta(cfg)
+        specs = [((ll, batch, meta["d_conv"] - 1, meta["conv_dim"]), dtype),
+                 ((ll, batch, meta["nheads"], meta["headdim"],
+                   meta["d_state"]), torch.float32)]
+        if kind == "hybrid":
+            specs += [((ll // cfg.attn_every, *kv[0]), dtype)] * 2
+    return Cache(kind, tuple(torch.zeros(shape, dtype=dt, device=device)
+                             for shape, dt in specs),
                  torch.zeros((), dtype=torch.int32, device=device))
+
+
+def _cache_max_len(cache: Cache) -> int:
+    """Positions the cache holds: the k/v (or latent) length, 1 for an
+    attention-free ``ssm`` cache."""
+    if cache.kind in ("gqa", "hybrid"):
+        return cache.data[-1].shape[2]
+    if cache.kind == "mla":
+        return cache.data[0].shape[2]
+    return 1
 
 
 @functools.lru_cache(maxsize=16)
@@ -232,7 +282,7 @@ def _embed_and_tables(cfg, params, cache, tokens, pos):
     dtype = _dtype(cfg.dtype)
     dev = tokens.device
     x = L.embed(params["embed"], tokens, dtype)
-    max_len = cache.data[0].shape[2]
+    max_len = _cache_max_len(cache)
     if cfg.pos_emb == "sinusoidal":
         table = _sinusoid_table(max_len + 1, cfg.d_model, dtype, dev)
         return x + table[pos].reshape(-1, 1, cfg.d_model), None, None
@@ -314,10 +364,11 @@ def decode_step(cfg: ModelConfig, params, cache: Cache,
     float32, cache)``: the same cache tensors, updated in place, with the
     length one higher.  A ``gqa`` cache takes :func:`decode_step_ragged`
     with every slot at that length; an ``mla`` cache runs the absorbed MLA
-    decode; SSM and hybrid caches raise."""
-    if cache.kind not in ("gqa", "mla"):
-        raise NotImplementedError(
-            f"{cfg.name}: decode of the {cache.kind!r} cache {_NOT_PORTED}")
+    decode; ``ssm`` and ``hybrid`` caches run the Mamba2 recurrence (and
+    the hybrid's shared attention block)."""
+    if cache.kind not in ("gqa", "mla", "ssm", "hybrid"):
+        raise ValueError(f"{cfg.name}: unknown decode cache kind "
+                         f"{cache.kind!r}")
     _check_ported(cfg)
     pos = cache.length.to(tokens.device)
     b = tokens.shape[0]
@@ -327,10 +378,16 @@ def decode_step(cfg: ModelConfig, params, cache: Cache,
         return logits, Cache("gqa", cache.data, pos + 1)
     x, cos, sin = _embed_and_tables(cfg, params, cache, tokens, pos)
     positions = pos.reshape(1, 1).expand(b, 1)
+    decode = _decode_mla if cache.kind == "mla" else _decode_ssm
+    x = decode(cfg, params, cache.data, x, cos, sin, positions, pos)
+    return _logits(cfg, params, x), Cache(cache.kind, cache.data, pos + 1)
+
+
+def _decode_mla(cfg, params, data, x, cos, sin, positions, pos):
     at = pos.reshape(1).long()  # the cache position written this step
     dims = dict(qk_nope_head_dim=cfg.qk_nope_head_dim,
                 qk_rope_head_dim=cfg.qk_rope_head_dim)
-    ckv, kr = cache.data
+    ckv, kr = data
     for i, (lp, moe_layer) in enumerate(_layer_list(cfg, params)):
         h = L.rmsnorm(lp["ln1"], x)
         q_nope, q_rope, c_kv, k_rope = mla_mod.mla_latents(
@@ -340,4 +397,39 @@ def decode_step(cfg: ModelConfig, params, cache: Cache,
         o = mla_mod.mla_attention_decode(lp["attn"], q_nope, q_rope, dims,
                                          ckv[i], kr[i], pos + 1)
         x = _ffn_block(cfg, lp, x + o, moe_layer=moe_layer)
-    return _logits(cfg, params, x), Cache("mla", cache.data, pos + 1)
+    return x
+
+
+def _decode_ssm(cfg, params, data, x, cos, sin, positions, pos):
+    """The Mamba2 stack, one token: each layer's conv and SSM states are
+    overwritten in place.  In a hybrid, the shared attention block runs
+    after every ``attn_every``-th layer (application ``idx // attn_every``
+    after layer ``idx``), on its own k/v entry of the cache."""
+    meta = mamba_meta(cfg)
+    conv_c, st_c = data[:2]
+    for i, lp in enumerate(params["layers"]):
+        h = L.rmsnorm(lp["ln"], x)
+        out, (conv_n, st_n) = ssm_mod.mamba2_forward(
+            lp["mamba"], meta, h, state=(conv_c[i], st_c[i]))
+        conv_c[i].copy_(conv_n)
+        st_c[i].copy_(st_n)
+        x = x + out
+        if cfg.attn_every and (i + 1) % cfg.attn_every == 0:
+            app = i // cfg.attn_every
+            x = _shared_attention(cfg, params["shared_attn"], data[2][app],
+                                  data[3][app], x, cos, sin, positions, pos)
+    return x
+
+
+def _shared_attention(cfg, lp, kc, vc, x, cos, sin, positions, pos):
+    """The hybrid's shared block (GQA attention, then the MLP) at the
+    shared position ``pos``, writing its k/v into ``kc``/``vc``."""
+    at = pos.reshape(1).long()
+    h = L.rmsnorm(lp["ln1"], x)
+    q, k, v = attn_mod.qkv_project(lp["attn"], h, cos, sin, positions,
+                                   qk_norm=cfg.qk_norm)
+    kc.index_copy_(1, at, k.to(kc.dtype))
+    vc.index_copy_(1, at, v.to(vc.dtype))
+    o = attn_mod.decode_attention(q, kc, vc, pos + 1)
+    x = x + attn_mod.attention_output(lp["attn"], o, x.dtype)
+    return _ffn_block(cfg, lp, x, moe_layer=False)

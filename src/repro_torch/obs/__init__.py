@@ -1,54 +1,131 @@
-"""Telemetry surface of the port: a no-op shim.
+"""Runtime telemetry of the port: metrics, counters and profiler spans
+(torch port of ``repro.obs``).
 
-The port's instrumented sites call the same record points as
-``repro.obs`` (``enabled``, ``counter``, ``gauge``, ``histogram``,
-``log_event``, ``span``, ``host_span``).  Until the full telemetry layer
-is ported, telemetry is always disabled: every record point does nothing
-and every span is an empty context manager, so instrumented code adds no
-work on the device.
+Enable with ``obs.enable(metrics_dir=...)`` (JSONL under that directory)
+or ``obs.enable(sink=...)`` / ``obs.capture()`` (in memory, tests).  While
+disabled -- the default -- every record point returns before it touches
+its arguments and every span is an empty context, so instrumented code
+dispatches no extra tensor operation (``tests/test_torch_obs.py`` counts
+them).  While enabled, record points snapshot their tensors on the device
+and never wait for it; ``obs.flush()`` moves the snapshots to the host and
+writes the records (``repro_torch.obs.registry``).
+
+JSONL schema (one object per line), the reference's byte for byte except
+``ts``::
+
+    {"ts": <unix float>, "metric": "<dotted.name>",
+     "kind": "counter" | "gauge" | "histogram" | "event",
+     "step": <int, when set_step() was called>,
+     "value": <scalar or list>            # counter/gauge
+     "count"/"min"/"p50"/"p90"/"max"/"sum": ...  # histogram summary
+     "labels": {<labels>}}
+
+Metrics catalog -- the record points the port has:
+
+== Proposition 1 (co-rank search cost) ==
+``corank.iterations``        histogram, per search: iterations of
+                             Algorithm 1; labels ``bound = ceil(log2
+                             min(m, n)) + 1`` (value <= bound), ``m``,
+                             ``n``; a gauge of the fixed round count where
+                             the caller fixes it.
+``kway.corank_rounds``       gauge: lock-step binary-search rounds of the
+                             k-way cut; labels ``bound``.
+
+== External (out-of-core) sort ==
+``external.runs_spilled``    counter: sorted runs written to host.
+``external.bytes_spilled``   counter: bytes those runs occupy on disk.
+``external.windows_merged``  counter: output windows made durable.
+``external.merge_passes``    gauge: fanout-capped passes a sort took.
+``external.device_resident_bytes`` gauge: bytes on the card right now --
+                             one chunk during ``phase="chunk_sort"``, the
+                             staged windows and one output window during
+                             ``phase="merge"``.
+``external.resident_boundary_elems`` gauge: input elements the host
+                             co-rank planner materialises per probe
+                             (exactly ``k``; label ``bound = k``).
+``external.plan_probes``     counter: boundary probes per cut search.
+``external.copy_compute_overlap`` gauge in [0, 1]: share of host staging
+                             time hidden behind an in-flight device merge;
+                             labels ``k``.
+
+== Serving ==
+``serve.admitted``           counter: requests moved into KV-pool slots.
+``serve.completed``          counter: requests retired.
+``serve.queue_depth``        gauge: requests waiting for a slot.
+``serve.active_slots``       gauge: occupied slots after admission; labels
+                             ``capacity``.
+``serve.slots_recycled``     counter: slot ``free()`` calls.
+``serve.step_latency``       gauge: wall-clock microseconds of one engine
+                             step; labels ``batch``, ``unit``.
+``serve.topk_merge_rounds``  gauge: merges per batched top-k call after
+                             the block sort (a function of vocab and
+                             fanout, never of the batch); labels
+                             ``batch``, ``blocks``, ``fanout``.
+``serve.topk_candidates``    counter: candidate keys entering the final
+                             merge; labels ``batch``, ``k``.
+``serve.sampled_tokens``     gauge, ``(batch,)``: the token ids the
+                             lock-step loop drew this step (snapshotted on
+                             the device); labels ``batch``.
+
+== Dispatch ==
+``kernels.backend_selected`` event, once per (op, backend, source): which
+                             backend ``repro_torch.backend`` chose and why.
+``kernels.dispatch_calls``   counter per call; labels ``op``, ``backend``.
+``obs.profile_started`` / ``obs.profile_stopped`` events: the profiler's
+                             trace window (``--profile-steps``).
+
+Spans: ``repro.stable_merge``, ``repro.stable_merge_kway``,
+``repro.merge_window``, ``repro.stable_sort`` (kernel dispatch) and
+``repro.merge_kway`` sit inside ``obs.span``; ``repro.external_sort`` and
+the launcher's ``serve.prefill`` inside ``obs.host_span``; each decode
+step inside ``obs.step_span("decode", i)``.  The reference's distributed
+metrics (``splitters.*``, ``exchange.*``, ``moe.*`` of the expert-parallel
+exchange) wait for the port of ``distributed/``, and its
+``attach_hlo_report`` is XLA's (ROADMAP.md, Queue 1 items 4 and 6).
 """
 
-from __future__ import annotations
-
-import contextlib
+from repro_torch.obs.registry import (
+    capture,
+    counter,
+    disable,
+    enable,
+    enabled,
+    flush,
+    gauge,
+    histogram,
+    log_event,
+    record,
+    set_step,
+    totals,
+)
+from repro_torch.obs.sink import JsonlSink, ListSink, Sink
+from repro_torch.obs.trace import (
+    host_span,
+    span,
+    start_profile,
+    step_span,
+    stop_profile,
+)
 
 __all__ = [
+    "enable",
+    "disable",
     "enabled",
+    "capture",
+    "record",
     "counter",
     "gauge",
     "histogram",
     "log_event",
+    "set_step",
+    "flush",
+    "totals",
+    "Sink",
+    "ListSink",
+    "JsonlSink",
     "span",
     "host_span",
+    "step_span",
+    "start_profile",
+    "stop_profile",
 ]
-
-
-def enabled() -> bool:
-    """Telemetry is off: callers skip computing what they would record."""
-    return False
-
-
-def counter(metric: str, value=1, **labels) -> None:
-    """Record point for a monotone count (no-op)."""
-
-
-def gauge(metric: str, value, **labels) -> None:
-    """Record point for a current value (no-op)."""
-
-
-def histogram(metric: str, values, **labels) -> None:
-    """Record point for a distribution summary (no-op)."""
-
-
-def log_event(metric: str, **labels) -> None:
-    """Record point for a one-off event (no-op)."""
-
-
-def span(name: str):
-    """Device-side subsystem span (empty context)."""
-    return contextlib.nullcontext()
-
-
-def host_span(name: str):
-    """Host-side wall-clock span (empty context)."""
-    return contextlib.nullcontext()

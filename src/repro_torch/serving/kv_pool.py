@@ -39,9 +39,10 @@ class KVPool:
                  dtype=torch.bfloat16, device="cuda"):
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
-        if cache_kind(cfg) == "mla":
+        kind = cache_kind(cfg)
+        if kind != "gqa":
             raise NotImplementedError(
-                f"KVPool supports the 'gqa' cache family; got 'mla' "
+                f"KVPool supports the 'gqa' cache family; got {kind!r} "
                 f"({cfg.name} is served by the lock-step decode_step)")
         base = init_cache(cfg, capacity, max_len, dtype=dtype, device=device)
         self.capacity = capacity

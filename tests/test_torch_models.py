@@ -46,8 +46,12 @@ def _np(tree):
 
 
 # Smoke configs with fields changed from the registry's: dbrx with one
-# leading dense layer (the ``dense_layers`` stack on the gqa cache).
-VARIANTS = {"dbrx-132b+dense1": ("dbrx-132b", {"first_k_dense": 1})}
+# leading dense layer (the ``dense_layers`` stack on the gqa cache); a
+# hybrid of five layers with the shared block every second one (two
+# applications, then a trailing layer with none after it).
+VARIANTS = {"dbrx-132b+dense1": ("dbrx-132b", {"first_k_dense": 1}),
+            "zamba2-1.2b+5x2": ("zamba2-1.2b", {"n_layers": 5,
+                                                 "attn_every": 2})}
 
 
 def _cfgs(name, dtype="float32"):
@@ -103,12 +107,20 @@ def test_init_params_is_seeded_and_truncated():
 
 @pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-1.2b"])
 def test_unported_families_raise(arch):
-    _, cfg = _cfgs(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tf.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    if tf.cache_kind(cfg) != "gqa":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tf.init_cache(cfg, 2, 8, device="cpu")
+    """The SSM and hybrid families, which raised until they were ported:
+    ``init_params`` and ``init_cache`` build the reference's trees, leaf
+    for leaf in shape and dtype."""
+    rcfg, cfg = _cfgs(arch)
+    ref, _ = ref_tf.init_params(rcfg, jax.random.key(0))
+    got = tf.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    want = {k: (s, str(np.dtype(d))) for k, (s, d) in _shapes(_np(ref)).items()}
+    assert _shapes(got) == want
+    assert ("shared_attn" in got) == bool(cfg.attn_every)
+    rcache = ref_tf.init_cache(rcfg, 2, 8)
+    cache = tf.init_cache(cfg, 2, 8, device="cpu")
+    assert cache.kind == rcache.kind
+    assert [(tuple(t.shape), str(t.dtype).removeprefix("torch."))
+            for t in cache.data] == [(a.shape, str(a.dtype)) for a in rcache.data]
 
 
 def test_params_from_numpy_carries_leaves_and_bf16_bits():
@@ -379,11 +391,15 @@ def _lockstep_both(arch, dtype, steps=5, b=3, max_len=12):
     return out, cache, rcache
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "deepseek-v3-671b"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "deepseek-v3-671b",
+                                  "mamba2-2.7b", "zamba2-1.2b",
+                                  "zamba2-1.2b+5x2"])
 def test_decode_step_lockstep_matches_reference_float32(arch):
     """Lock-step steps at one shared position: qwen3 on the gqa cache;
     deepseek-v3 on the mla cache (absorbed MLA decode, one leading dense
-    layer, then MoE layers with sigmoid routing and a shared expert)."""
+    layer, then MoE layers with sigmoid routing and a shared expert);
+    mamba2 on the ssm cache (conv and SSM states); zamba2 on the hybrid
+    cache (the shared attention block after every second layer)."""
     out, cache, rcache = _lockstep_both(arch, "float32")
     for got, want in out:
         _close(got, want)
@@ -391,16 +407,26 @@ def test_decode_step_lockstep_matches_reference_float32(arch):
         _close(got, want)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "deepseek-v3-671b"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "deepseek-v3-671b",
+                                  "mamba2-2.7b", "zamba2-1.2b",
+                                  "zamba2-1.2b+5x2"])
 def test_decode_step_lockstep_matches_reference_bf16(arch):
-    out, _, _ = _lockstep_both(arch, "bfloat16")
+    """Logits, and for the SSM and hybrid caches every cache tensor too
+    (the float32 SSM state is computed from bf16 inputs)."""
+    out, cache, rcache = _lockstep_both(arch, "bfloat16")
     for got, want in out:
         _close(got, want, BF16_TOL)
+    if cache.kind in ("ssm", "hybrid"):
+        for got, want in zip(cache.data, rcache.data):
+            assert got.dtype == {"bfloat16": torch.bfloat16,
+                                 "float32": torch.float32}[str(want.dtype)]
+            _close(got, want, BF16_TOL)
 
 
 def test_lockstep_rejects_ssm_caches():
+    """Every cache family decodes now; a cache of an unknown kind raises."""
     _, cfg = _cfgs("qwen3-0.6b")
     cache = tf.init_cache(cfg, 1, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tf.decode_step(cfg, {}, tf.Cache("ssm", cache.data, cache.length),
+    with pytest.raises(ValueError, match="unknown decode cache kind"):
+        tf.decode_step(cfg, {}, tf.Cache("rwkv", cache.data, cache.length),
                        torch.zeros((1, 1), dtype=torch.long))

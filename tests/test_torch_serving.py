@@ -14,6 +14,7 @@ flip the arg-max); the test prints every waiver.
 
 import argparse
 import dataclasses
+import json
 import os
 import pathlib
 import subprocess
@@ -109,9 +110,12 @@ def test_pool_recycle_resets_length_only(smoke_model):
 
 
 def test_pool_refuses_other_cache_families():
-    cfg = smoke_config(ARCHS["mamba2-2.7b"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        KVPool(cfg, capacity=2, max_len=8, device="cpu")
+    """SSM and hybrid caches have no per-slot positions either: the pool
+    refuses them, naming the lock-step path they are served on."""
+    for arch in ("mamba2-2.7b", "zamba2-1.2b"):
+        cfg = smoke_config(ARCHS[arch])
+        with pytest.raises(NotImplementedError, match="lock-step"):
+            KVPool(cfg, capacity=2, max_len=8, device="cpu")
 
 
 def test_pool_refuses_the_mla_cache():
@@ -304,21 +308,46 @@ def test_serve_launcher_smoke_on_cpu():
     ("dbrx-132b", ["--moe-dispatch", "dropless"], "served 4 requests / 24 tokens"),
     ("dbrx-132b", ["--moe-dispatch", "capacity"], "served 4 requests / 24 tokens"),
     ("deepseek-v3-671b", [], "generated (4, 6) tokens"),
-    ("mamba2-2.7b", [], "NotImplementedError"),
+    ("mamba2-2.7b", [], "generated (8, 6) tokens"),
+    ("zamba2-1.2b", [], "generated (8, 6) tokens"),
 ])
 def test_serve_launcher_moe_and_mla_on_cpu(arch, extra, expect):
     """dbrx (MoE, gqa cache) serves on the continuous path with either
-    dispatch, deepseek-v3 (MLA cache) on the lock-step path; SSM archs
-    raise naming ROADMAP."""
+    dispatch; deepseek-v3 (MLA cache), mamba2 (SSM cache) and zamba2
+    (hybrid cache) on the lock-step path."""
     env = {**os.environ, "PYTHONPATH": str(REPO / "src")}
     res = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
          "--smoke", "--device", "cpu", "--requests", "4", "--tokens", "6",
          *extra],
         capture_output=True, text=True, timeout=300, env=env, cwd=REPO)
-    if expect == "NotImplementedError":
-        assert res.returncode != 0
-        assert "NotImplementedError" in res.stderr and "ROADMAP" in res.stderr
-    else:
-        assert res.returncode == 0, res.stderr
-        assert expect in res.stdout
+    assert res.returncode == 0, res.stderr
+    assert expect in res.stdout
+    if "generated" in expect:
+        assert "[lock-step]" in res.stdout
+
+
+@pytest.mark.parametrize("arch,path_metric", [
+    ("qwen3-0.6b", "serve.step_latency"),  # continuous path
+    ("zamba2-1.2b", "serve.sampled_tokens"),  # lock-step path
+])
+def test_serve_launcher_metrics_dir_on_cpu(tmp_path, arch, path_metric):
+    """``--metrics-dir`` writes the JSONL, every decode step's records
+    carrying its ``step`` label, and ``--profile-steps`` a trace under
+    ``<metrics-dir>/profile``."""
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src")}
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
+         "--smoke", "--device", "cpu", "--requests", "3", "--tokens", "4",
+         "--metrics-dir", str(tmp_path), "--profile-steps", "2"],
+        capture_output=True, text=True, timeout=300, env=env, cwd=REPO)
+    assert res.returncode == 0, res.stderr
+    recs = [json.loads(line) for line in
+            (tmp_path / "metrics.jsonl").read_text().splitlines()]
+    names = {r["metric"] for r in recs}
+    assert {path_metric, "kernels.dispatch_calls", "obs.profile_started",
+            "obs.profile_stopped"} <= names
+    stepped = [r["step"] for r in recs if r["metric"] == path_metric]
+    assert stepped and stepped == sorted(stepped) and stepped[0] == 0
+    assert all("step" in r for r in recs if r["metric"] == "kernels.dispatch_calls")
+    assert list((tmp_path / "profile").glob("*.pt.trace.json"))
