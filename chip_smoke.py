@@ -72,7 +72,31 @@ full data size through the entry points a user calls:
                    --metrics-dir <tmp> --profile-steps 2`` in a subprocess,
                    whose JSONL must hold ``serve.*`` and
                    ``kernels.dispatch_calls`` records with step labels and
-                   whose ``<tmp>/profile`` must hold a trace.
+                   whose ``<tmp>/profile`` must hold a trace;
+9. train         — ``repro_torch.launch.train.main`` on granite-3-2b at its
+                   published widths and depth (40 layers, d 2048, vocab
+                   49155, float32 params and moments, bf16 compute, full
+                   remat), random weights from a seeded generator: batch
+                   8, seq 2048, one warm-up step and four timed (CUDA
+                   events), every loss and gnorm finite and the first loss
+                   within 5% of ln(vocab), peak memory, the grouped
+                   launches a step of the length bucketing (above 0); each
+                   timed step's bucket order on the ``cuda`` backend
+                   against the ``torch`` backend and ``torch.sort(stable=
+                   True)``; a profile of one step (launches, busy share);
+                   one step with ``--external-threshold 32`` (the window
+                   of 64 documents spills runs and merges them through
+                   ``merge_kway_tile``: its packed batch must equal the
+                   in-memory one); a restart at a cut depth (2 layers,
+                   batch 2, seq 256: train to step 3, launch again to 6,
+                   the step-6 checkpoint bit for bit against an
+                   uninterrupted run's under deterministic algorithms,
+                   and restored into the port on the CPU); then one train
+                   step of dbrx (dropless and capacity), deepseek-v3,
+                   mamba2 and zamba2 at smoke widths on both merge
+                   backends (equal losses and router gradients, a
+                   non-zero router gradient, grouped launches on the MoE
+                   archs).
 
 Every phase sets the kernels' launch counters to 0 just before its main
 path and reads them just after; it holds each kernel's output against the
@@ -113,6 +137,9 @@ says so), for a fast check that the kernels build and agree.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
+import io
 import json
 import os
 import re
@@ -139,6 +166,15 @@ MOE_MODELS = (("dbrx-132b", {"n_layers": 4, "param_dtype": "bfloat16"}),
 # Phase ssm: both models at their published widths and depths, float32
 # storage as published (PERF.md, section 4).
 SSM_MODELS = ("mamba2-2.7b", "zamba2-1.2b")
+# Phase train: the reference launcher's default arch at its published widths
+# and depth; batch and sequence of one 80 GB card (PERF.md, section 4).
+TRAIN_ARCH = "granite-3-2b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 5  # one warm-up, four timed
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
+# Phase train, part (d): one step of each other family at smoke width.
+TRAIN_FAMILIES = (("dbrx-132b", "dropless"), ("dbrx-132b", "capacity"),
+                  ("deepseek-v3-671b", None), ("mamba2-2.7b", None),
+                  ("zamba2-1.2b", None))
 # (name, tokens, top-k, experts, router scoring): 32,768 assignments each
 MOE_DISPATCH = (("dbrx", 8192, 4, 16, "softmax"),
                 ("deepseek-v3", 4096, 8, 256, "sigmoid"))
@@ -1275,6 +1311,343 @@ class Smoke:
             if not (serve and calls and traces and out):
                 raise AssertionError("launcher obs check: missing records or trace")
 
+    # -- phase 9: training ---------------------------------------------------------
+
+    def phase_train(self) -> None:
+        import gc
+
+        gc.collect()
+        self.torch.cuda.empty_cache()
+        first_loss = self.train_main()
+        self.train_profile()
+        self.train_attention()
+        self.train_external(first_loss)
+        self.train_restart()
+        self.train_families()
+
+    def train_argv(self, *extra) -> list:
+        return ["--arch", TRAIN_ARCH, "--batch", str(TRAIN_BATCH), "--seq",
+                str(TRAIN_SEQ), "--log-every", "1", *extra]
+
+    def train_step_flops(self, cfg) -> float:
+        """Operations of one train step under full remat: the layers' and
+        the tied unembedding's products forward, again in the recompute and
+        twice over in the backward (8 per weight per token), and the
+        attention's two score products (no causal skip: every KV chunk is
+        computed) four times over."""
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        layer = cfg._attn_params() + cfg._ffn_params()
+        attn = 4 * TRAIN_BATCH * cfg.n_heads * TRAIN_SEQ ** 2 * cfg.resolved_head_dim
+        return (8 * tokens * (cfg.n_layers * layer + cfg.vocab * cfg.d_model)
+                + 4 * cfg.n_layers * attn)
+
+    def train_main(self) -> float:
+        """(a) The launcher at full width and depth; (b) each timed step's
+        bucket order on both backends and against ``torch.sort``, and every
+        grouped launch of one bucketing held against its plain version."""
+        import math
+
+        from repro_torch.configs.registry import ARCHS
+        from repro_torch.data import pipeline
+        from repro_torch.launch import train as launcher
+
+        torch = self.torch
+        cfg = ARCHS[TRAIN_ARCH]
+        argv = self.train_argv("--steps", str(TRAIN_STEPS))
+        log(f"phase train: repro_torch.launch.train.main({' '.join(argv)}): "
+            f"{cfg.name} at full width and depth ({cfg.param_count() / 1e9:.3f} B "
+            f"params, {cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads}/"
+            f"{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+            f"{cfg.param_dtype} params and {cfg.adam_dtype} moments, "
+            f"{cfg.dtype} compute, remat {cfg.remat})")
+        torch.cuda.reset_peak_memory_stats()
+        self.reset()
+        t0 = time.perf_counter()
+        with backend_env(self.ops, "cuda"):
+            res = launcher.main(argv)
+        wall = time.perf_counter() - t0
+        launched = self.read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        timed = res["step_ms"][1:]
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        median = statistics.median(timed)
+        p90 = statistics.quantiles(timed, n=10)[-1]
+        flops = self.train_step_flops(cfg)
+        per_step = launched["merge_kway_tile_groups"] / TRAIN_STEPS
+        log(f"  train {cfg.name}: {TRAIN_STEPS} steps ({tokens} tokens each) in "
+            f"{wall:.1f} s wall; timed steps {[round(t, 1) for t in timed]} ms, "
+            f"median {median:.1f} ms, p90 {p90:.1f} ms (CUDA events), "
+            f"{tokens * len(timed) / (sum(timed) / 1e3):,.0f} tokens/s; peak "
+            f"memory {peak / 1e9:.2f} GB (max_memory_allocated); "
+            f"merge_kway_tile_groups launches {launched['merge_kway_tile_groups']} "
+            f"({per_step:.1f} a step); {flops / 1e12:.1f} TFLOP a step, bound "
+            f"{flops / BF16_OPS_PER_S * 1e3:.1f} ms at 989 TFLOP/s bf16 "
+            f"({flops / BF16_OPS_PER_S * 1e3 / median:.3f} of the bound's rate)")
+        for i, (loss, gn, ms) in enumerate(zip(res["losses"], res["gnorms"],
+                                               res["step_ms"])):
+            log(f"    step {i}: loss {loss:.5f} gnorm {gn:.5f} ({ms:.1f} ms)")
+        ln_v = math.log(cfg.vocab)
+        finite = all(math.isfinite(x) for x in res["losses"] + res["gnorms"])
+        if not (finite and abs(res["losses"][0] - ln_v) <= 0.05 * ln_v
+                and per_step > 0 and len(res["losses"]) == TRAIN_STEPS):
+            raise AssertionError(
+                f"train: losses {res['losses']}, gnorms {res['gnorms']} (ln V "
+                f"{ln_v:.4f}), grouped launches a step {per_step}")
+
+        dc = pipeline.DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                 batch=TRAIN_BATCH)
+        bad = 0
+        for step in range(1, TRAIN_STEPS):
+            lengths = [len(d) for d in pipeline.window_documents(dc, step)]
+            orders = {}
+            for backend in ("cuda", "torch"):
+                with backend_env(self.ops, backend):
+                    orders[backend] = pipeline.bucket_by_length(lengths,
+                                                                device=self.dev)
+            oracle = torch.sort(torch.tensor(lengths, device=self.dev),
+                                stable=True).indices.cpu().numpy()
+            bad += int((orders["cuda"] != orders["torch"]).sum()
+                       + (orders["cuda"] != oracle).sum())
+        log(f"  train bucket orders of the {TRAIN_STEPS - 1} timed steps "
+            f"({len(lengths)} documents a window): {bad} positions differ "
+            f"between the cuda backend, the torch backend and "
+            f"torch.sort(stable=True)")
+        if bad:
+            raise AssertionError(f"train bucket orders: {bad} differ")
+        self.record_grouped(
+            lambda: pipeline.bucket_by_length(lengths, device=self.dev),
+            lambda g, kk, w: f"train bucket ({g},{kk},{w})")
+        return res["losses"][0]
+
+    def train_profile(self) -> None:
+        """One train step of the same model under ``torch.profiler`` (after
+        a warm-up step): launches, device time, busy share, top kernels,
+        and the grouped launches' device time."""
+        from repro_torch.configs.registry import ARCHS
+        from repro_torch.data import pipeline
+        from repro_torch.models import transformer as tm
+        from repro_torch.train.optimizer import adamw_init
+        from repro_torch.train.train_step import build_train_step
+
+        torch = self.torch
+        cfg = ARCHS[TRAIN_ARCH]
+        params = tm.init_params(cfg, torch.Generator(device=self.dev).manual_seed(0),
+                                device=self.dev)
+        opt = adamw_init(params)
+        step_fn = build_train_step(cfg, total_steps=TRAIN_STEPS, warmup=10)
+        stream = pipeline.batches(pipeline.DataConfig(
+            vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH), device=self.dev)
+        keys = ("tokens", "labels", "mask")
+        with backend_env(self.ops, "cuda"):
+            batch = next(stream)
+            step_fn(params, opt, {k: batch[k] for k in keys}, 0)
+            batch = next(stream)
+            wall, busy, kernels = self.device_profile(
+                lambda: float(step_fn(params, opt, {k: batch[k] for k in keys},
+                                      1)[2]["loss"]))
+        launches = sum(c for c, _ in kernels.values())
+        log(f"  profile of one train step: wall {wall:.1f} ms, device "
+            f"{'not measured' if busy is None else f'{busy:.1f} ms'}"
+            + ("" if busy is None else f", busy share {busy / wall:.3f}")
+            + f", {launches} kernel launches")
+        for name, (c, ms) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]:
+            log(f"    {ms:.2f} ms in {c} launches: {name[:90]}")
+        for name, (c, ms) in sorted(self.host_calls.items(), key=lambda kv: -kv[1][1])[:3]:
+            log(f"    host: {ms:.2f} ms in {c} calls: {name[:60]}")
+
+    def train_attention(self) -> None:
+        """One layer's attention at the phase's shape (bf16 q (8, 2048, 32,
+        64), k and v with 8 heads, causal): the port's chunked
+        ``flash_attention`` forward, and forward with backward, beside
+        ``F.scaled_dot_product_attention`` (a yardstick the port never
+        calls); the outputs agree within bf16 rounding."""
+        import torch.nn.functional as F
+        from repro_torch.configs.registry import ARCHS
+        from repro_torch.models.attention import flash_attention
+
+        torch = self.torch
+        cfg = ARCHS[TRAIN_ARCH]
+        hd = cfg.resolved_head_dim
+
+        def draw(heads):
+            return torch.randn((TRAIN_BATCH, TRAIN_SEQ, heads, hd), generator=self.gen,
+                               device=self.dev).to(torch.bfloat16).requires_grad_(True)
+
+        q, k, v = draw(cfg.n_heads), draw(cfg.n_kv_heads), draw(cfg.n_kv_heads)
+        dout = torch.randn(q.shape, generator=self.gen, device=self.dev).to(torch.bfloat16)
+
+        def port():
+            return flash_attention(q, k, v, q_chunk=min(cfg.q_chunk, TRAIN_SEQ),
+                                   kv_chunk=min(cfg.kv_chunk, TRAIN_SEQ))
+
+        def library():
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, enable_gqa=True).transpose(1, 2)
+
+        times = {}
+        for name, fn in (("port", port), ("sdpa", library)):
+            with torch.no_grad():
+                times[name] = self.timed_ms(fn, 3)
+            times[name + "_bwd"] = self.timed_ms(
+                lambda: torch.autograd.grad(fn(), (q, k, v), dout), 3)
+        with torch.no_grad():
+            got, want = port().float(), library().float()
+        rel = float((got - want).norm() / want.norm())
+        log(f"  train attention of one layer ({TRAIN_BATCH}, {TRAIN_SEQ}, "
+            f"{cfg.n_heads}/{cfg.n_kv_heads} heads, {hd}) bf16 causal: port "
+            f"flash_attention forward {times['port']:.2f} ms, forward+backward "
+            f"{times['port_bwd']:.2f} ms; scaled_dot_product_attention (yardstick) "
+            f"{times['sdpa']:.2f} ms, {times['sdpa_bwd']:.2f} ms; relative L2 "
+            f"difference {rel:.5f} (limit 1e-2)")
+        if not rel < 1e-2:
+            raise AssertionError(f"train attention: relative difference {rel}")
+
+    def train_external(self, first_loss: float) -> None:
+        """(b) The out-of-core bucketing: a window of 64 documents past
+        ``--external-threshold 32`` spills two runs and merges them in
+        windows through ``merge_kway_tile``; the packed batch equals the
+        in-memory one bit for bit, and the launcher's first step on it
+        gives the in-memory run's first loss."""
+        from repro_torch.configs.registry import ARCHS
+        from repro_torch.data import pipeline
+        from repro_torch.launch import train as launcher
+
+        cfg = ARCHS[TRAIN_ARCH]
+        with tempfile.TemporaryDirectory() as tmp, backend_env(self.ops, "cuda"):
+            dc = pipeline.DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                     batch=TRAIN_BATCH)
+            self.reset()
+            ext = next(pipeline.batches(
+                dataclasses.replace(dc, external_threshold=32,
+                                    external_workdir=tmp), device=self.dev))
+            launched = self.read_launches()
+            mem = next(pipeline.batches(dc, device=self.dev))
+            bad = sum(self.mismatch(ext[k], mem[k])[0]
+                      for k in ("tokens", "labels", "mask"))
+            res = launcher.main(self.train_argv(
+                "--steps", "1", "--external-threshold", "32",
+                "--external-workdir", tmp))
+        log(f"  train --external-threshold 32: {launched['merge_kway_tile']} "
+            f"merge_kway_tile and {launched['merge_kway_tile_groups']} grouped "
+            f"launches for one window; packed batch differs from the in-memory "
+            f"one in {bad} elements; launcher step loss "
+            f"{res['losses'][0]:.6f} (in-memory run {first_loss:.6f})")
+        if bad or launched["merge_kway_tile"] == 0 or not \
+                abs(res["losses"][0] - first_loss) <= 1e-5 * first_loss:
+            raise AssertionError(f"train external: {bad} differ, launches "
+                                 f"{launched}, losses {res['losses']}")
+
+    def train_restart(self) -> None:
+        """(c) The launcher at a cut depth (2 layers, batch 2, seq 256,
+        checkpoints every 3 steps): to step 3, again to step 6 (it must
+        resume from 3), and an uninterrupted run to 6; the two step-6
+        checkpoints bit for bit under deterministic algorithms; the card's
+        checkpoint restored into the port on the CPU."""
+        import numpy as np
+        from repro_torch.checkpoint import checkpointer as ck
+        from repro_torch.configs.registry import ARCHS
+        from repro_torch.launch import train as launcher
+        from repro_torch.models import transformer as tm
+        from repro_torch.train.optimizer import adamw_init
+
+        torch = self.torch
+        full = ARCHS[TRAIN_ARCH]
+        cut = dataclasses.replace(full, n_layers=2)
+
+        def run(ckpt_dir, steps):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                launcher.main(["--arch", TRAIN_ARCH, "--batch", "2", "--seq", "256",
+                               "--steps", str(steps), "--ckpt-dir", ckpt_dir,
+                               "--ckpt-every", "3", "--log-every", "3"])
+            return out.getvalue()
+
+        def load(path):
+            entries = json.loads(Path(path, "manifest.json").read_text())["leaves"]
+            return {e["name"]: np.load(Path(path, e["file"])) for e in entries}
+
+        with tempfile.TemporaryDirectory() as tmp, backend_env(self.ops, "cuda"):
+            ARCHS[TRAIN_ARCH] = cut  # the launcher reads the registry
+            torch.use_deterministic_algorithms(True)
+            try:
+                run(f"{tmp}/cut", 3)
+                resumed = run(f"{tmp}/cut", 6)
+                straight = run(f"{tmp}/straight", 6)
+            finally:
+                torch.use_deterministic_algorithms(False)
+                ARCHS[TRAIN_ARCH] = full
+            a, b = load(f"{tmp}/cut/step_00000006"), load(f"{tmp}/straight/step_00000006")
+            differ = [n for n in a if a[n].tobytes() != b[n].tobytes()]
+            like = {"params": tm.init_params(cut, torch.Generator().manual_seed(1),
+                                             device="cpu")}
+            like["opt"] = adamw_init(like["params"])
+            ck.restore_checkpoint(f"{tmp}/cut", 6, like)
+            on_cpu = {n: t for n, t in ck._flatten_with_paths(like)}
+            cpu_differ = [n for n in a if on_cpu[n].numpy().tobytes() != a[n].tobytes()]
+        ok = "resumed from step 3" in resumed and "resumed" not in straight
+        log(f"  train restart ({cut.n_layers} layers, batch 2, seq 256): second "
+            f"launch {'resumed from step 3' if ok else 'did NOT resume'}; step-6 "
+            f"checkpoints: {len(differ)} of {len(a)} leaves differ from the "
+            f"uninterrupted run's (bit for bit, deterministic algorithms); "
+            f"restored on the CPU: {len(cpu_differ)} leaves differ, step "
+            f"{int(like['opt'].step)}")
+        if not ok or differ or cpu_differ or int(like["opt"].step) != 6:
+            raise AssertionError(f"train restart: resumed {ok}, differ {differ}, "
+                                 f"cpu {cpu_differ}")
+
+    def train_families(self) -> None:
+        """(d) One train step of each other family at smoke width, on the
+        ``cuda`` and ``torch`` merge backends from the same weights and
+        batch, under deterministic algorithms: equal losses and router
+        gradients, a non-zero router gradient, grouped launches on the
+        MoE archs."""
+        from repro_torch.configs.registry import ARCHS, smoke_config
+        from repro_torch.data import pipeline
+        from repro_torch.models import transformer as tm
+        from repro_torch.train.optimizer import adamw_init, adamw_update
+        from repro_torch.train.train_step import loss_and_grads
+
+        torch = self.torch
+        for arch, dispatch in TRAIN_FAMILIES:
+            cfg = smoke_config(ARCHS[arch])
+            if dispatch:
+                cfg = dataclasses.replace(cfg, moe_dispatch=dispatch)
+            batch = next(pipeline.batches(pipeline.DataConfig(
+                vocab=cfg.vocab, seq_len=64, batch=4, mean_doc_len=16),
+                device=self.dev))
+            batch = {k: batch[k] for k in ("tokens", "labels", "mask")}
+            out = {}
+            torch.use_deterministic_algorithms(True)
+            try:
+                for backend in ("cuda", "torch"):
+                    params = tm.init_params(
+                        cfg, torch.Generator(device=self.dev).manual_seed(0),
+                        device=self.dev)
+                    opt = adamw_init(params, dtype=getattr(torch, cfg.adam_dtype))
+                    self.reset()
+                    with backend_env(self.ops, backend):
+                        loss, grads = loss_and_grads(cfg, params, batch)
+                    launched = self.read_launches()["merge_kway_tile_groups"]
+                    router = [lp["mlp"]["router"] for lp in grads["layers"]
+                              if "router" in lp.get("mlp", {})]
+                    _, _, gnorm = adamw_update(grads, opt, params, lr=1e-3)
+                    out[backend] = (loss, router, gnorm, launched)
+            finally:
+                torch.use_deterministic_algorithms(False)
+            (lc, rc, gc_, n_c), (lt, rt, gt, _) = out["cuda"], out["torch"]
+            router_differ = sum(self.mismatch(a, b)[0] for a, b in zip(rc, rt))
+            router_max = max((float(g.abs().max()) for g in rc), default=0.0)
+            log(f"  train {cfg.name}{f' {dispatch}' if dispatch else ''} (smoke "
+                f"width): loss {float(lc):.6f} (torch backend {float(lt):.6f}), "
+                f"gnorm {float(gc_):.6f} ({float(gt):.6f}), {len(rc)} router "
+                f"gradients, {router_differ} elements differ between the "
+                f"backends, max |grad| {router_max:.3e}; grouped launches {n_c}")
+            if self.mismatch(lc, lt)[0] or router_differ or \
+                    self.mismatch(gc_, gt)[0] or (cfg.moe and (router_max == 0 or n_c == 0)):
+                raise AssertionError(f"train {cfg.name}: backends differ or the "
+                                     f"router learns nothing")
+
     # -- report -------------------------------------------------------------
 
     def kernels_line(self) -> dict:
@@ -1379,6 +1752,9 @@ def main() -> int:
         print("error: src/repro_torch not found beside chip_smoke.py; run it "
               "from a checkout of the repository", file=sys.stderr)
         return 2
+    # Deterministic cuBLAS (the train phase's restart check) needs a fixed
+    # workspace, set before the first product.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -1395,7 +1771,8 @@ def main() -> int:
     t_start = time.perf_counter()
     for phase in (smoke.phase_build, smoke.phase_merge, smoke.phase_merge_kway,
                   smoke.phase_merge_window, smoke.phase_external,
-                  smoke.phase_serve, smoke.phase_moe, smoke.phase_ssm):
+                  smoke.phase_serve, smoke.phase_moe, smoke.phase_ssm,
+                  smoke.phase_train):
         t0 = time.perf_counter()
         try:
             phase()

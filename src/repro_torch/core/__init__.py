@@ -20,6 +20,7 @@ from repro_torch.core.kway import (
 )
 from repro_torch.core.mergesort import (
     merge_argsort,
+    merge_pairs_ranked,
     merge_runs_plain,
     merge_runs_ranked,
     merge_sort,
@@ -52,6 +53,7 @@ __all__ = [
     "merge_kway",
     "merge_kway_ranked",
     "merge_argsort",
+    "merge_pairs_ranked",
     "merge_runs_plain",
     "merge_runs_ranked",
     "merge_sort",

@@ -26,6 +26,7 @@ __all__ = [
     "merge_argsort",
     "sort_key_val",
     "merge_runs_ranked",
+    "merge_pairs_ranked",
     "merge_runs_plain",
     "sentinel_max",
     "DEFAULT_FANOUT",
@@ -96,6 +97,12 @@ def merge_runs_ranked(keys: torch.Tensor, vals: torch.Tensor | None):
             return km.merge_kway_tile_groups(keys, vals)
         announce(op, "torch", "shape", keys.device)
     return merge_runs_plain(keys, vals)
+
+
+def merge_pairs_ranked(keys: torch.Tensor, vals: torch.Tensor | None):
+    """Pairwise special case kept for callers and benchmarks: ``keys`` and
+    ``vals`` of shape ``(r, 2, w)`` -> ``(r, 2w)``."""
+    return merge_runs_ranked(keys, vals)
 
 
 def _padded_pow2(n: int) -> int:

@@ -54,9 +54,9 @@ from repro_torch.serving.sampling import (
 )
 
 
-class _Profile:
-    """The ``--profile-steps`` window: a trace of the first ``steps``
-    decode steps under ``<metrics_dir>/profile``."""
+class ProfileWindow:
+    """The ``--profile-steps`` window: a trace of a launcher's first
+    ``steps`` steps under ``<metrics_dir>/profile``."""
 
     def __init__(self, metrics_dir: str, steps: int):
         self.steps = steps
@@ -91,7 +91,7 @@ def _serve_continuous(cfg, params, args, device, metrics_dir=""):
         for i in range(args.requests)
     ]
 
-    profile = _Profile(metrics_dir, args.profile_steps)
+    profile = ProfileWindow(metrics_dir, args.profile_steps)
     t0 = time.time()
     i = 0
     while True:
@@ -206,7 +206,7 @@ def _serve_lockstep(cfg, params, args, device, metrics_dir=""):
                           device=device)
     rng = np.random.default_rng(0)
     prompts = rng.integers(1, cfg.vocab, (batch, args.prompt_len))
-    profile = _Profile(metrics_dir, args.profile_steps)
+    profile = ProfileWindow(metrics_dir, args.profile_steps)
     t0 = time.time()
     gen = dec.generate(prompts, args.tokens, after_step=profile.after)
     dt = time.time() - t0

@@ -1,10 +1,17 @@
-"""GQA attention, decode path (torch port of ``repro.models.attention``).
+"""GQA attention: chunked online softmax for prefill and training, and
+the decode path (torch port of ``repro.models.attention``).
 
-GQA is written with a (kv_head, group) layout: the cache is never
+``flash_attention`` never materialises the full (S, S) score matrix: a
+loop over query chunks and an inner loop over KV chunks carry the online
+softmax statistics (running max and normaliser), so the live scores are
+``q_chunk x kv_chunk`` per head.  ``causal_skip`` skips the KV chunks
+wholly above the diagonal.  ``make_flash_attention_vjp`` is the same
+forward as an autograd function whose backward recomputes the
+probabilities chunk by chunk from the saved ``out``, ``m`` and ``l``.
+
+GQA is written with a (kv_head, group) layout: K and V are never
 repeated up to ``n_heads``.  The products are ``torch.einsum`` calls, as
-the reference leaves them to XLA.  The reference's chunked
-``flash_attention`` and its VJP serve prefill and training and are not
-ported yet.
+the reference leaves them to XLA, and every cast is the reference's.
 """
 
 from __future__ import annotations
@@ -20,7 +27,14 @@ from repro_torch.models.layers import (
     truncated_normal,
 )
 
-__all__ = ["init_gqa", "qkv_project", "attention_output", "decode_attention"]
+__all__ = [
+    "init_gqa",
+    "qkv_project",
+    "flash_attention",
+    "make_flash_attention_vjp",
+    "attention_output",
+    "decode_attention",
+]
 
 
 def init_gqa(gen, d, n_heads, n_kv, head_dim, qkv_bias=False, qk_norm=False,
@@ -69,6 +83,181 @@ def qkv_project(params, x, cos, sin, positions, qk_norm=False):
         q = apply_rope(q, cos, sin, positions)
         k = apply_rope(k, cos, sin, positions)
     return q, k, v
+
+
+def _chunk_layout(q, k, v, q_chunk, kv_chunk):
+    """Sizes and the chunked views: q ``(b, nq, qc, n_kv, g, hd)``, k
+    ``(b, nkv, kc, n_kv, hd)``, v ``(b, nkv, kc, n_kv, hdv)``."""
+    b, sq, h, hd = q.shape
+    skv, n_kv = k.shape[1], k.shape[2]
+    hdv = v.shape[3]  # v head dim may differ from the qk head dim (MLA)
+    if sq % q_chunk or skv % kv_chunk:
+        raise ValueError(f"sequence lengths {sq}, {skv} are not multiples "
+                         f"of the chunks {q_chunk}, {kv_chunk}")
+    g = h // n_kv
+    nq, nkv = sq // q_chunk, skv // kv_chunk
+    dims = (b, nq, nkv, n_kv, g, hd, hdv)
+    return (dims, q.reshape(b, nq, q_chunk, n_kv, g, hd),
+            k.reshape(b, nkv, kv_chunk, n_kv, hd),
+            v.reshape(b, nkv, kv_chunk, n_kv, hdv))
+
+
+def _masked_scores(qi, kc, causal, q0, k0):
+    """Scores ``(b, n_kv, g, qc, kc)`` in float32 of a query chunk starting
+    at position ``q0`` against a KV chunk starting at ``k0``; ``-inf``
+    above the diagonal when ``causal``."""
+    s = torch.einsum("bqcgd,bkcd->bcgqk", qi, kc).float()
+    if causal:
+        qp = torch.arange(q0, q0 + qi.shape[1], device=qi.device)
+        kp = torch.arange(k0, k0 + kc.shape[1], device=qi.device)
+        s = s.masked_fill(qp[:, None] < kp[None, :], float("-inf"))
+    return s
+
+
+def _safe(m):
+    return torch.where(torch.isfinite(m), m, 0.0)
+
+
+def _online_softmax(qi, kr, vr, q0, kv_hi, causal):
+    """One query chunk over the first ``kv_hi`` KV chunks: ``(acc, m, l)``
+    with ``acc`` ``(b, n_kv, g, qc, hdv)`` and ``m``, ``l`` ``(b, n_kv, g,
+    qc)``, all float32.  The running max only shifts the exponent, so it
+    is taken without a gradient: the output does not depend on it, and
+    autograd then keeps no float32 copy of the scores for it."""
+    b, qc, n_kv, g, _ = qi.shape
+    kc = kr.shape[2]
+    dev = qi.device
+    acc = torch.zeros((b, n_kv, g, qc, vr.shape[-1]), dtype=torch.float32,
+                      device=dev)
+    m = torch.full((b, n_kv, g, qc), float("-inf"), dtype=torch.float32,
+                   device=dev)
+    l = torch.zeros((b, n_kv, g, qc), dtype=torch.float32, device=dev)
+    for j in range(kv_hi):
+        s = _masked_scores(qi, kr[:, j], causal, q0, j * kc)
+        m_new = torch.maximum(m, s.detach().amax(dim=-1))
+        safe_m = _safe(m_new)
+        p = torch.exp(s - safe_m[..., None])
+        p = torch.where(torch.isfinite(s), p, 0.0)
+        alpha = torch.where(torch.isfinite(m), torch.exp(m - safe_m), 0.0)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bcgqk,bkcd->bcgqd", p.to(qi.dtype), vr[:, j]).float()
+        m = m_new
+    return acc, m, l
+
+
+def flash_attention(q, k, v, *, causal: bool = True, q_chunk: int = 1024,
+                    kv_chunk: int = 1024, causal_skip: bool = False):
+    """Chunked online-softmax attention (GQA-native).
+
+    q: (b, sq, h, hd); k: (b, skv, n_kv, hd); v: (b, skv, n_kv, hdv).
+    Returns (b, sq, h, hdv) in ``q``'s dtype.  ``causal_skip`` (with
+    ``causal`` and more than one query chunk) runs each query chunk only
+    over the KV chunks that reach its last position.  Autograd
+    differentiates the loops as they are; :func:`make_flash_attention_vjp`
+    is the form that recomputes the probabilities instead.
+    """
+    q_chunk = min(q_chunk, q.shape[1])
+    kv_chunk = min(kv_chunk, k.shape[1])
+    (b, nq, nkv, _, _, _, hdv), qr, kr, vr = _chunk_layout(
+        q * (1.0 / math.sqrt(q.shape[3])), k, v, q_chunk, kv_chunk)
+    skip = causal_skip and causal and nq > 1
+    outs = []
+    for i in range(nq):
+        kv_hi = (min(nkv, ((i + 1) * q_chunk + kv_chunk - 1) // kv_chunk)
+                 if skip else nkv)
+        acc, _, l = _online_softmax(qr[:, i], kr, vr, i * q_chunk, kv_hi,
+                                    causal)
+        out = acc / torch.clamp(l, min=1e-37)[..., None]
+        # (b, n_kv, g, qc, hdv) -> (b, qc, n_kv, g, hdv)
+        outs.append(out.permute(0, 3, 1, 2, 4).to(q.dtype))
+    return torch.stack(outs, dim=1).reshape(b, q.shape[1], -1, hdv)
+
+
+def _flash_fwd_chunked(q, k, v, causal, q_chunk, kv_chunk):
+    """Forward returning ``(out, ms, ls)``; ``ms`` and ``ls`` are ``(nq,
+    b, n_kv, g, qc)`` float32."""
+    (b, nq, _, _, _, _, hdv), qr, kr, vr = _chunk_layout(
+        q * (1.0 / math.sqrt(q.shape[3])), k, v, q_chunk, kv_chunk)
+    outs, ms, ls = [], [], []
+    for i in range(nq):
+        acc, m, l = _online_softmax(qr[:, i], kr, vr, i * q_chunk,
+                                    kr.shape[1], causal)
+        outs.append((acc / torch.clamp(l, min=1e-37)[..., None]).to(q.dtype))
+        ms.append(m)
+        ls.append(l)
+    # (nq, b, c, g, qc, hdv) -> (b, sq, h, hdv)
+    out = torch.stack(outs).permute(1, 0, 4, 2, 3, 5).reshape(
+        b, q.shape[1], -1, hdv)
+    return out, torch.stack(ms), torch.stack(ls)
+
+
+def _flash_bwd_chunked(q, k, v, out, ms, ls, dout, causal, q_chunk,
+                       kv_chunk):
+    """Gradients ``(dq, dk, dv)`` of the chunked attention from the saved
+    statistics: each chunk's probabilities are recomputed, ``dk`` and
+    ``dv`` are accumulated in float32 across query chunks."""
+    (b, nq, nkv, n_kv, g, hd, hdv), qr, kr, vr = _chunk_layout(
+        q, k, v, q_chunk, kv_chunk)
+    scale = 1.0 / math.sqrt(hd)
+    do = dout.reshape(b, nq, q_chunk, n_kv, g, hdv)
+    og = out.reshape(b, nq, q_chunk, n_kv, g, hdv)
+    # delta: rowsum(do * out) per query, (nq, b, c, g, qc)
+    delta = torch.einsum("bnqcgd,bnqcgd->nbcgq", do.float(), og.float())
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dk = torch.zeros((b, nkv, kv_chunk, n_kv, hd), **f32)
+    dv = torch.zeros((b, nkv, kv_chunk, n_kv, hdv), **f32)
+    dqs = []
+    for i in range(nq):
+        qs = (qr[:, i] * scale).to(q.dtype)
+        doi = do[:, i]
+        safe_m = _safe(ms[i])[..., None]
+        l_i = torch.clamp(ls[i], min=1e-37)[..., None]
+        dq = torch.zeros((b, q_chunk, n_kv, g, hd), **f32)
+        for j in range(nkv):
+            kc, vc = kr[:, j], vr[:, j]
+            s = _masked_scores(qs, kc, causal, i * q_chunk, j * kv_chunk)
+            p = torch.where(torch.isfinite(s), torch.exp(s - safe_m), 0.0)
+            p = p / l_i  # normalised probabilities
+            pb = p.to(q.dtype)
+            dv[:, j] += torch.einsum("bcgqk,bqcgd->bkcd", pb, doi).float()
+            dp = torch.einsum("bqcgd,bkcd->bcgqk", doi, vc).float()
+            dsb = (p * (dp - delta[i][..., None])).to(q.dtype)
+            dq += torch.einsum("bcgqk,bkcd->bqcgd", dsb, kc).float() * scale
+            # qs already carries the 1/sqrt(d) factor, so no extra scale
+            dk[:, j] += torch.einsum("bcgqk,bqcgd->bkcd", dsb, qs).float()
+        dqs.append(dq.to(q.dtype))
+    dq = torch.stack(dqs, dim=1).reshape(q.shape)
+    return dq, dk.reshape(k.shape).to(k.dtype), dv.reshape(v.shape).to(v.dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Chunked attention whose backward recomputes the probabilities:
+    saves ``q``, ``k``, ``v``, ``out`` and the per-query ``m`` and ``l``,
+    no per-chunk probabilities."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_chunk, kv_chunk):
+        out, ms, ls = _flash_fwd_chunked(q, k, v, causal, q_chunk, kv_chunk)
+        ctx.save_for_backward(q, k, v, out, ms, ls)
+        ctx.cfg = (causal, q_chunk, kv_chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, ms, ls = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd_chunked(q, k, v, out, ms, ls, dout, *ctx.cfg)
+        return dq, dk, dv, None, None, None
+
+
+def make_flash_attention_vjp(*, causal: bool, q_chunk: int, kv_chunk: int):
+    """``flash_attention`` with the flash backward (recompute, no
+    probabilities saved): a function ``(q, k, v) -> out``."""
+
+    def fa(q, k, v):
+        return _FlashAttention.apply(q, k, v, causal, q_chunk, kv_chunk)
+
+    return fa
 
 
 def attention_output(params, attn, x_dtype):

@@ -1,11 +1,11 @@
-"""Multi-head Latent Attention, decode path (torch port of
-``repro.models.mla``).
+"""Multi-head Latent Attention (torch port of ``repro.models.mla``).
 
-Decode uses the *absorbed* form: ``W_uk`` is folded into the query and
-``W_uv`` into the output, so attention runs directly against the
-compressed cache, ``kv_lora_rank + qk_rope_head_dim`` values per token.
-The reference's ``mla_attention_train`` (decompress K/V, flash attention)
-serves prefill and training and waits for the training slice.
+Training and prefill (:func:`mla_attention_train`) decompress the latent
+``c_kv`` into per-head K and V and run the chunked flash attention (qk
+head dim ``nope + rope``, v head dim ``v_head_dim``).  Decode uses the
+*absorbed* form: ``W_uk`` is folded into the query and ``W_uv`` into the
+output, so attention runs directly against the compressed cache,
+``kv_lora_rank + qk_rope_head_dim`` values per token.
 """
 
 from __future__ import annotations
@@ -14,9 +14,11 @@ import math
 
 import torch
 
+from repro_torch.models.attention import flash_attention
 from repro_torch.models.layers import apply_rope, rmsnorm, truncated_normal
 
-__all__ = ["init_mla", "mla_latents", "mla_attention_decode"]
+__all__ = ["init_mla", "mla_latents", "mla_attention_train",
+           "mla_attention_decode"]
 
 
 def init_mla(gen, d, n_heads, *, q_lora_rank, kv_lora_rank,
@@ -69,6 +71,24 @@ def mla_latents(params, x, cos, sin, positions, dims):
     k_rope = torch.einsum("bsd,dk->bsk", x, params["w_krope"].to(dt))
     k_rope = apply_rope(k_rope[:, :, None, :], cos, sin, positions)[:, :, 0]
     return q_nope, q_rope, c_kv, k_rope
+
+
+def mla_attention_train(params, x, cos, sin, positions, dims, *,
+                        q_chunk=1024, kv_chunk=1024, causal_skip=False):
+    """Prefill/train path: decompress K/V, flash attention, output
+    projection.  x ``(b, s, d)`` -> ``(b, s, d)``."""
+    dt = x.dtype
+    b, s, _ = x.shape
+    q_nope, q_rope, c_kv, k_rope = mla_latents(params, x, cos, sin,
+                                               positions, dims)
+    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, params["w_uk"].to(dt))
+    v = torch.einsum("bsr,rhk->bshk", c_kv, params["w_uv"].to(dt))
+    h = q_nope.shape[2]
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, -1)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    attn = flash_attention(q, k, v, causal=True, q_chunk=q_chunk,
+                           kv_chunk=kv_chunk, causal_skip=causal_skip)
+    return torch.einsum("bshk,hkd->bsd", attn, params["wo"].to(dt))
 
 
 def mla_attention_decode(params, q_nope, q_rope, dims, ckv_cache,

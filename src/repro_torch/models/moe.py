@@ -97,11 +97,14 @@ def route_topk(router_logits: torch.Tensor, k: int, *,
     if scoring == "sigmoid":
         scores = torch.sigmoid(router_logits.float())
         select = scores + (router_bias if router_bias is not None else 0.0)
-        _, experts = merge_topk_batch(select, k)
-        w = torch.gather(scores, -1, experts.long())
     else:
         scores = torch.softmax(router_logits.float(), dim=-1)
-        w, experts = merge_topk_batch(scores, k)
+        select = scores
+    _, experts = merge_topk_batch(select.detach(), k)
+    # The weights are gathered from the scores, not taken from the top-k's
+    # keys: the values are the same bits, and the gather carries the
+    # router's gradient on every merge backend (the grouped launch has none).
+    w = torch.gather(scores, -1, experts.long())
     w = w / (w.sum(dim=-1, keepdim=True) + 1e-20)
     return w, experts
 
@@ -149,10 +152,12 @@ def _segments(group_sizes) -> list[tuple[int, int, int]]:
 
 
 def _segment_gemm(x: torch.Tensor, w: torch.Tensor, segments) -> torch.Tensor:
-    out = x.new_zeros((x.shape[0], w.shape[-1]))
-    for e, lo, hi in segments:
-        torch.mm(x[lo:hi], w[e], out=out[lo:hi])
-    return out
+    """One product per segment, concatenated (autograd passes through it),
+    then zeros for the rows past the last segment."""
+    end = segments[-1][2] if segments else 0
+    parts = [x[lo:hi] @ w[e] for e, lo, hi in segments]
+    parts.append(x.new_zeros((x.shape[0] - end, w.shape[-1])))
+    return torch.cat(parts)
 
 
 def grouped_gemm(x: torch.Tensor, w: torch.Tensor, group_sizes):

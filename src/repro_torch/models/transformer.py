@@ -1,19 +1,26 @@
-"""Model assembly and decode (torch port of ``repro.models.transformer``).
+"""Model assembly, training forward and decode (torch port of
+``repro.models.transformer``).
 
-What is ported: ``init_params`` for every family -- dense (and the
-``vlm``/``audio`` backbones, whose frontends are stubs in the reference
-too), MoE with GQA or MLA attention and ``first_k_dense`` leading dense
-layers, SSM (a Mamba2 stack) and hybrid (a Mamba2 stack with one shared
-attention block); ``_cast_params``; the decode :class:`Cache`;
-``init_cache`` for the ``gqa``, ``mla``, ``ssm`` and ``hybrid`` cache
-families; the continuous-batching step ``decode_step_ragged`` (``gqa``
-caches) and the lock-step ``decode_step`` (every cache family).
-``prefill_logits`` and ``train_loss`` are items of ROADMAP.md's Queue 1.
+``init_params`` builds every family -- dense (and the ``vlm``/``audio``
+backbones, whose frontends are stubs in the reference too), MoE with GQA
+or MLA attention and ``first_k_dense`` leading dense layers, SSM (a
+Mamba2 stack) and hybrid (a Mamba2 stack with one shared attention
+block).  ``hidden_states``, ``train_loss`` and ``prefill_logits`` run the
+training and prefill forward on the stored params as they are, casting
+per use as the reference does; ``cfg.remat`` checkpoints each layer
+(``torch.utils.checkpoint``, non-reentrant) and each chunk of the loss.
+The decode :class:`Cache`, ``init_cache`` for the ``gqa``, ``mla``,
+``ssm`` and ``hybrid`` cache families, the continuous-batching step
+``decode_step_ragged`` (``gqa`` caches) and the lock-step ``decode_step``
+(every cache family) serve.
 
 Params are the reference's pytree as nested dicts of tensors, layers
 stacked on a leading axis (``dense_layers`` holds the leading dense layers
 of a ``first_k_dense`` MoE config, ``layers`` the rest; a hybrid's
-``shared_attn`` block is one unstacked layer).
+``shared_attn`` block is one unstacked layer).  Every function that runs
+the layers also takes a stack as a list of per-layer trees
+(:func:`layer_trees`); the trainer passes per-layer views so that each
+layer's gradient is its own tensor.
 :func:`compute_params` hands both stacks over as lists of per-layer trees,
 so a decode step indexes no stacked tensor, and casts the weights the
 reference casts on every use (those >= 2-D per layer) to the compute dtype
@@ -36,6 +43,11 @@ import functools
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
@@ -50,9 +62,13 @@ __all__ = [
     "compute_params",
     "decode_step",
     "decode_step_ragged",
+    "hidden_states",
     "init_cache",
     "init_params",
+    "layer_trees",
     "mamba_meta",
+    "prefill_logits",
+    "train_loss",
 ]
 
 
@@ -189,18 +205,190 @@ def compute_params(cfg: ModelConfig, params):
     dt = _dtype(cfg.dtype)
     out = dict(params)
     for name in ("dense_layers", "layers"):
-        layers = out.get(name)
-        if isinstance(layers, dict):
-            out[name] = [_map(lambda a, i=i: a[i], layers)
-                         for i in range(_depth(layers))]
+        if name in out:
+            out[name] = layer_trees(out[name])
     return _map(lambda p: p.to(dt) if p.dim() >= 2 and p.is_floating_point()
                 else p, out)
 
 
-def _depth(layers) -> int:
-    while isinstance(layers, dict):
-        layers = next(iter(layers.values()))
-    return layers.shape[0]
+def layer_trees(layers) -> list:
+    """A stack of layers as a list of per-layer trees, each leaf a view of
+    the stacked tensor; a list is returned as it is."""
+    if isinstance(layers, list):
+        return layers
+    depth = layers
+    while isinstance(depth, dict):
+        depth = next(iter(depth.values()))
+    return [_map(lambda a, i=i: a[i], layers) for i in range(depth.shape[0])]
+
+
+# --------------------------------------------------------------------------
+# forward (train / prefill)
+# --------------------------------------------------------------------------
+
+
+def _embed_inputs(cfg, params, tokens, frontend_embeds, dtype):
+    x = L.embed(params["embed"], tokens, dtype)
+    if cfg.frontend != "none" and frontend_embeds is not None:
+        fe = torch.einsum("bfd,de->bfe", frontend_embeds.to(dtype),
+                          params["frontend_proj"].to(dtype))
+        x = torch.cat([fe, x[:, fe.shape[1]:]], dim=1)
+    if cfg.pos_emb == "sinusoidal":
+        x = x + _sinusoid_table(x.shape[1], cfg.d_model, dtype, x.device)
+    return x
+
+
+def _dense_attn_block(cfg, lp, x, cos, sin, positions):
+    h = L.rmsnorm(lp["ln1"], x)
+    if cfg.mla:
+        dims = dict(qk_nope_head_dim=cfg.qk_nope_head_dim,
+                    qk_rope_head_dim=cfg.qk_rope_head_dim)
+        a = mla_mod.mla_attention_train(
+            lp["attn"], h, cos, sin, positions, dims, q_chunk=cfg.q_chunk,
+            kv_chunk=cfg.kv_chunk, causal_skip=cfg.causal_skip)
+    else:
+        q, k, v = attn_mod.qkv_project(lp["attn"], h, cos, sin, positions,
+                                       qk_norm=cfg.qk_norm)
+        if cfg.flash_vjp:
+            fa = attn_mod.make_flash_attention_vjp(
+                causal=True, q_chunk=min(cfg.q_chunk, q.shape[1]),
+                kv_chunk=min(cfg.kv_chunk, k.shape[1]))
+            o = fa(q, k, v)
+        else:
+            o = attn_mod.flash_attention(
+                q, k, v, causal=True, q_chunk=cfg.q_chunk,
+                kv_chunk=cfg.kv_chunk, causal_skip=cfg.causal_skip)
+        a = attn_mod.attention_output(lp["attn"], o, x.dtype)
+    return x + a
+
+
+_aten = torch.ops.aten
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save the products without batch dims (``mm``, ``addmm``, and the
+    ``bmm`` of batch 1 that ``torch.einsum`` issues for them); recompute
+    the rest."""
+    if op in (_aten.mm.default, _aten.addmm.default) or (
+            op is _aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg, fn):
+    """``cfg.remat`` around ``fn``, when autograd records: ``full`` keeps
+    only ``fn``'s inputs and recomputes the rest in the backward; ``dots``
+    also keeps the outputs of the products without batch dims (the
+    reference's ``dots_with_no_batch_dims_saveable``); ``none`` keeps what
+    autograd keeps."""
+    if cfg.remat == "none":
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kw)
+
+    return run
+
+
+def hidden_states(cfg: ModelConfig, params, tokens: torch.Tensor,
+                  frontend_embeds=None) -> torch.Tensor:
+    """Token (and frontend) inputs ``(b, s)`` -> the final hidden states
+    ``(b, s, d)`` in the compute dtype.  ``params`` are the stored ones
+    (stacked, or with the stacks as :func:`layer_trees`); every weight is
+    cast where it is used.  A hybrid runs its shared block after every
+    ``attn_every``-th Mamba2 layer."""
+    _check_ported(cfg)
+    dtype = _dtype(cfg.dtype)
+    s = tokens.shape[1]
+    dev = tokens.device
+    x = _embed_inputs(cfg, params, tokens, frontend_embeds, dtype)
+    cos = sin = None
+    if cfg.pos_emb == "rope":
+        hd = cfg.qk_rope_head_dim if cfg.mla else cfg.resolved_head_dim
+        cos, sin = _rope_tables(hd, s, cfg.rope_theta, dev)
+    positions = torch.arange(s, device=dev)[None, :]
+
+    if cfg.ssm:
+        meta = mamba_meta(cfg)
+        shared = params.get("shared_attn")
+
+        def mamba_body(xx, lp, idx):
+            out, _ = ssm_mod.mamba2_forward(
+                lp["mamba"], meta, L.rmsnorm(lp["ln"], xx), chunk=cfg.ssm_chunk)
+            xx = xx + out
+            if cfg.attn_every and (idx + 1) % cfg.attn_every == 0:
+                xx = _dense_attn_block(cfg, shared, xx, cos, sin, positions)
+                xx = _ffn_block(cfg, shared, xx, moe_layer=False)
+            return xx
+
+        body = _remat(cfg, mamba_body)
+        for idx, lp in enumerate(layer_trees(params["layers"])):
+            x = body(x, lp, idx)
+        return L.rmsnorm(params["final_norm"], x)
+
+    def block(xx, lp, moe_layer):
+        xx = _dense_attn_block(cfg, lp, xx, cos, sin, positions)
+        return _ffn_block(cfg, lp, xx, moe_layer=moe_layer)
+
+    body = _remat(cfg, block)
+    for lp, moe_layer in _layer_list(cfg, params):
+        x = body(x, lp, moe_layer)
+    return L.rmsnorm(params["final_norm"], x)
+
+
+def _unembed_table(cfg, params):
+    return params["embed" if cfg.tie_embeddings else "unembed"]["table"]
+
+
+def _chunked_ce(cfg, params, hidden, labels, mask, chunk: int = 512):
+    """Mean cross-entropy over the unmasked positions, ``chunk`` positions
+    at a time: the (b, s, vocab) logits never exist, and under
+    ``cfg.remat`` neither do a chunk's float32 logits in the backward."""
+    s = hidden.shape[1]
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of chunk {chunk}")
+    table = _unembed_table(cfg, params).to(hidden.dtype)
+
+    def step(hc, yc, mc):
+        logits = torch.einsum("bcd,vd->bcv", hc, table).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, yc[..., None].long())[..., 0]
+        return torch.sum((lse - gold) * mc)
+
+    step = _remat(cfg, step)
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    count = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for lo in range(0, s, chunk):
+        mc = mask[:, lo:lo + chunk]
+        total = total + step(hidden[:, lo:lo + chunk], labels[:, lo:lo + chunk],
+                             mc)
+        count = count + torch.sum(mc)
+    return total / torch.clamp(count, min=1.0)
+
+
+def train_loss(cfg: ModelConfig, params, batch) -> torch.Tensor:
+    """batch: ``{'tokens': (b, s), 'labels': (b, s), 'mask': (b, s)}`` and
+    optionally ``'frontend_embeds': (b, f, d)``; a float32 scalar."""
+    hidden = hidden_states(cfg, params, batch["tokens"],
+                           batch.get("frontend_embeds"))
+    return _chunked_ce(cfg, params, hidden, batch["labels"], batch["mask"])
+
+
+def prefill_logits(cfg: ModelConfig, params, tokens: torch.Tensor,
+                   frontend_embeds=None) -> torch.Tensor:
+    """Inference prefill: the full forward, then float32 next-token logits
+    ``(b, vocab)`` of the last position only."""
+    last = hidden_states(cfg, params, tokens, frontend_embeds)[:, -1, :]
+    table = _unembed_table(cfg, params)
+    return torch.einsum("bd,vd->bv", last, table.to(last.dtype)).float()
 
 
 # --------------------------------------------------------------------------
@@ -301,8 +489,8 @@ def _logits(cfg, params, x):
 def _layer_list(cfg, params):
     """``(layer params, is an MoE layer)`` in cache order: the leading
     dense layers of a ``first_k_dense`` config first."""
-    return ([(lp, False) for lp in params.get("dense_layers", [])]
-            + [(lp, cfg.moe) for lp in params["layers"]])
+    return ([(lp, False) for lp in layer_trees(params.get("dense_layers", []))]
+            + [(lp, cfg.moe) for lp in layer_trees(params["layers"])])
 
 
 def _ffn_block(cfg, lp, x, *, moe_layer):

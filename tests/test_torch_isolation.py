@@ -39,6 +39,11 @@ def fresh_import():
         "import repro_torch.serving, repro_torch.launch.serve, "
         "repro_torch.models.convert, repro_torch.configs.registry\n"
         "import repro_torch.models.ssm, repro_torch.core.baselines\n"
+        "import repro_torch.train, repro_torch.train.optimizer, "
+        "repro_torch.train.train_step, repro_torch.train.compress\n"
+        "import repro_torch.data, repro_torch.data.pipeline\n"
+        "import repro_torch.checkpoint, repro_torch.checkpoint.checkpointer\n"
+        "import repro_torch.launch.train\n"
         "bad = sorted(m for m, mod in sys.modules.items() if mod is not None "
         "and (m in ('jax', 'repro') or m.startswith(('jax.', 'repro.'))))\n"
         "print('foreign', bad)\n"
