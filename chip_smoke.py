@@ -96,7 +96,29 @@ full data size through the entry points a user calls:
                    mamba2 and zamba2 at smoke widths on both merge
                    backends (equal losses and router gradients, a
                    non-zero router gradient, grouped launches on the MoE
-                   archs).
+                   archs);
+10. distributed  — ``repro_torch.distributed`` on 4 gloo ranks that share
+                   the card (``cuda:0``; NCCL refuses two ranks on one
+                   GPU), spawned after the build phase so that they
+                   compile nothing: the k-way and pairwise splitters
+                   against one process's co-ranks; ``sharded_sort`` of
+                   2^24 keys a rank (uniform and duplicate-heavy int32, an
+                   already sorted array, float32 with +-inf, +-0.0 and
+                   float32 max) on the exchange and allgather strategies,
+                   with the permutation through a second exchange, against
+                   ``torch.sort(stable=True)``, and the sorted input at
+                   half the capacity (accounted drops, zero tail);
+                   ``sharded_sort_host`` of 2^26 + 3 keys;
+                   ``distributed_merge`` (allgather, corank) of m = n =
+                   2^25 against ``ops.stable_merge``; ``dropless_moe_ffn``
+                   in dbrx-132b's and deepseek-v3-671b's MoE shapes at full
+                   width (bf16, uniform and one-hot routing) against one
+                   process's dropless layer, the plan on both merge
+                   backends, then a truncating capacity;
+                   ``compressed_psum`` within its quantisation bound; each
+                   rank's times, wire bytes and launches, every launch held
+                   against its plain version as it happens; then an NCCL
+                   group of world size 1 (the card count) in this process.
 
 Every phase sets the kernels' launch counters to 0 just before its main
 path and reads them just after; it holds each kernel's output against the
@@ -178,6 +200,17 @@ TRAIN_FAMILIES = (("dbrx-132b", "dropless"), ("dbrx-132b", "capacity"),
 # (name, tokens, top-k, experts, router scoring): 32,768 assignments each
 MOE_DISPATCH = (("dbrx", 8192, 4, 16, "softmax"),
                 ("deepseek-v3", 4096, 8, 256, "sigmoid"))
+
+
+# Phase distributed: ranks of one gloo group sharing the card, keys a rank,
+# m = n of the pairwise merge, and the MoE layers at full width
+# (name, experts, top-k, d, ff, tokens a rank, router scoring).
+DIST_RANKS = 4
+DIST_KEYS_LOG2 = 24
+DIST_MERGE_LOG2 = 25
+DIST_MOE = (("dbrx-132b", 16, 4, 6144, 10752, 2048),
+            ("deepseek-v3-671b", 256, 8, 7168, 2048, 1024))
+DIST_TIMEOUT_S = 600
 
 
 def log(msg: str) -> None:
@@ -1648,6 +1681,178 @@ class Smoke:
                 raise AssertionError(f"train {cfg.name}: backends differ or the "
                                      f"router learns nothing")
 
+    # -- phase 10: the distributed layer ---------------------------------------
+
+    def phase_distributed(self) -> None:
+        """``repro_torch.distributed`` on DIST_RANKS gloo ranks that share
+        the card (``cuda:0``; spawned after the build phase, so they load
+        its libraries and compile nothing), then an NCCL group of one rank
+        (the card count) in this process."""
+        import multiprocessing
+        import socket
+
+        p = DIST_RANKS
+        log(f"phase distributed: {p} gloo ranks share one card (cuda:0) -- "
+            f"not a multi-GPU measurement; collectives staged through the "
+            f"host by the port: none (gloo takes the CUDA tensors)")
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        ctx = multiprocessing.get_context("spawn")
+        queue = ctx.Queue()
+        procs = [ctx.Process(target=distributed_rank, args=(r, p, port, self.cut, queue))
+                 for r in range(p)]
+        for proc in procs:
+            proc.start()
+        reports, deadline = {}, time.monotonic() + DIST_TIMEOUT_S
+        try:
+            while len(reports) < p and time.monotonic() < deadline:
+                try:
+                    rep = queue.get(timeout=5)
+                except Exception:  # queue.Empty: see whether a rank died
+                    if any(proc.exitcode not in (None, 0) for proc in procs):
+                        break
+                    continue
+                reports[rep["rank"]] = rep
+        finally:
+            for proc in procs:
+                proc.join(timeout=30)
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join()
+        codes = [proc.exitcode for proc in procs]
+        errors = {r: rep["error"] for r, rep in reports.items() if "error" in rep}
+        for r, text in errors.items():
+            log(f"  rank {r} failed:\n{text}")
+        if len(reports) < p or errors or any(codes):
+            raise AssertionError(f"distributed: reports from {sorted(reports)}, "
+                                 f"exit codes {codes}")
+        self.distributed_report([reports[r] for r in range(p)])
+        self.nccl_world_one()
+
+    def distributed_report(self, reps) -> None:
+        """Print every case's per-rank numbers; fail on any difference, a
+        compile in a rank, a missing launch or an accounting error."""
+        bad = []
+        compiled = [rep["compiled"] for rep in reps]
+        log(f"  libraries compiled by the ranks: {compiled} (must be empty); "
+            f"seconds per case (rank 0): "
+            + ", ".join(f"{k} {v:.1f}" for k, v in reps[0]["seconds"].items()))
+        if any(compiled):
+            bad.append("a rank compiled a kernel")
+        totals = {name: [0, 0, 0] for name in KERNELS}  # launches, checked, mismatches
+        uses = {"sort": ("merge_kway_tile", "merge_kway_tile_groups"),
+                "truncation": ("merge_kway_tile",),
+                "sharded_sort_host": ("merge_kway_tile", "merge_kway_tile_groups"),
+                "merge": ("merge_tile",),
+                "moe": ("merge_kway_tile", "merge_kway_tile_groups")}
+        for case in reps[0]["cases"]:
+            rows = [rep["cases"][case] for rep in reps]
+            per = {key: [_rounded(row.get(key)) for row in rows] for key in rows[0]}
+            text = " ".join(f"{key}={vals}" for key, vals in per.items()
+                            if key not in ("launches", "checked", "mismatches", "wire", "ms"))
+            if "ms" in per:
+                text += f" ms(per rank; {len(rows)} gloo ranks share one card)={per['ms']}"
+            if "wire" in per:
+                text += f" wire bytes(per rank)={per['wire']}"
+            if "launches" in per:
+                text += f" launches(per rank)={per['launches']}"
+                for row in rows:
+                    for name in KERNELS:
+                        totals[name][0] += row["launches"][name]
+                        totals[name][1] += row["checked"][name]
+                        totals[name][2] += row["mismatches"][name]
+                    used = uses.get(case.split()[0], ())
+                    if any(row["launches"][name] == 0 for name in used) or \
+                            any(row["mismatches"].values()):
+                        bad.append(f"{case}: launches {row['launches']}, "
+                                   f"mismatches {row['mismatches']}")
+            log(f"  distributed {case}: {text}")
+            for row in rows:
+                for key in ("differ", "perm_differ", "plan_differ", "overflow",
+                            "tail_nonzero"):
+                    if row.get(key):
+                        bad.append(f"{case}: {key}={row[key]}")
+                if "dropped" in row and not (row["dropped"] == row["expected_dropped"] > 0
+                                             and row["clipped"]):
+                    bad.append(f"{case}: dropped {row['dropped']}")
+                if "capacity_overflow" in row and not (
+                        row["capacity_overflow"] == row["capacity_planned_minus_received"]
+                        and row["capacity_clipped"]):
+                    bad.append(f"{case}: capacity accounting {row}")
+                if "rel_l2" in row and not (row["rel_l2"] <= 1e-2 and row["finite"]):
+                    bad.append(f"{case}: rel L2 {row['rel_l2']}")
+                if row.get("max_err_over_bound", 0) > 1:
+                    bad.append(f"{case}: error over its bound")
+            if "capacity_overflow" in per and sum(per["capacity_overflow"]) == 0:
+                bad.append(f"{case}: the small capacity dropped nothing")
+        peaks = [max(rep["cases"][c].get("peak_gb", 0) for c in rep["cases"]) for rep in reps]
+        log(f"  distributed peak memory per rank {[round(x, 2) for x in peaks]} GB, "
+            f"{sum(peaks):.2f} GB for the {len(reps)} ranks (rank 0's one-process "
+            f"layer: {max(reps[0]['cases'][c].get('single_peak_gb', 0) for c in reps[0]['cases']):.2f} GB); "
+            f"one process's torch.sort(stable=True) of the {len(reps)} ranks' keys: "
+            f"{reps[0]['torch_sort_ms']:.4f} ms")
+        for name, (launched, checked, mm) in totals.items():
+            log(f"  distributed {name}: {launched} launches on {len(reps)} ranks, "
+                f"{checked} held against the plain version, {mm} mismatches")
+            self.launches[name] += launched
+            self.cases[name].append({
+                "case": f"distributed phase, {len(reps)} gloo ranks on one card",
+                "max_mismatch": mm, "max_abs_err": 0.0, "launches": launched,
+                "checked": checked})
+        if bad:
+            raise AssertionError("distributed: " + "; ".join(bad[:20]))
+
+    def nccl_world_one(self) -> None:
+        """(g) One ``sharded_merge_kway`` and one ``dropless_moe_ffn``
+        through an NCCL group of world size 1 (one card), equal to the
+        local results."""
+        import datetime
+        import socket
+
+        import torch.distributed as dist
+
+        from repro_torch import distributed as D
+        from repro_torch.models.moe import _dropless_moe
+
+        torch, dev = self.torch, self.dev
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                                rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=120))
+        try:
+            g = dist.group.WORLD
+            w = 1 << (DIST_KEYS_LOG2 - self.cut)
+            run = self.sorted_keys("int32", (w,))
+            self.reset()
+            out = D.sharded_merge_kway(run, g)
+            merged = self.read_launches()
+            name, n_exp, k, d, ff, t_loc = DIST_MOE[0]
+            t = t_loc >> self.cut
+            wg, wu, wd = _expert_weights(torch, dev, range(n_exp), d, ff)
+            xt = torch.randn((t, d), generator=self.gen, device=dev).to(torch.bfloat16)
+            wts = torch.rand((t, k), generator=self.gen, device=dev)
+            experts = torch.rand((t, n_exp), generator=self.gen, device=dev
+                                 ).argsort(dim=1)[:, :k].to(torch.int32)
+            self.reset()
+            ep, plan = D.dropless_moe_ffn(xt, experts, wts, wg, wu, wd, n_exp, g)
+            moe_launches = self.read_launches()
+            params = {"w_gate": wg, "w_up": wu, "w_down": wd}
+            local = _dropless_moe(params, xt, wts, experts, n_exp, k)
+        finally:
+            dist.destroy_process_group()
+        diff_merge = self.mismatch(out, run)[0]
+        diff_moe = self.mismatch(ep, local)[0]
+        log(f"  distributed nccl world size 1: sharded_merge_kway of {w} int32 keys "
+            f"{diff_merge} differ from the run, launches {merged}; dropless_moe_ffn "
+            f"{name} ({t} tokens, {n_exp} experts on one rank) {diff_moe} differ from "
+            f"the one-process layer, launches {moe_launches}, overflow "
+            f"{int((plan.planned - plan.recv_lengths).sum())}")
+        if diff_merge or diff_moe or not moe_launches["merge_kway_tile_groups"]:
+            raise AssertionError("distributed: the NCCL world-size-1 case differs")
+
     # -- report -------------------------------------------------------------
 
     def kernels_line(self) -> dict:
@@ -1672,6 +1877,514 @@ class Smoke:
                 "case": head.get("case"), "cases": cases,
             })
         return {"kernels": entries}
+
+
+# -- phase 10: the distributed layer, p gloo ranks sharing the card ------------
+
+
+def _rounded(v):
+    """``v`` with its floats to four decimals, for the log."""
+    if isinstance(v, float):
+        return round(v, 4)
+    if isinstance(v, dict):
+        return {k: _rounded(x) for k, x in v.items()}
+    return v
+
+
+def _bit_mismatches(torch, got, want) -> int:
+    """Elements whose bits differ (equal shapes and dtypes required)."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"shape/dtype {tuple(got.shape)}/{got.dtype} vs "
+                             f"{tuple(want.shape)}/{want.dtype}")
+    bits = {8: torch.int64, 4: torch.int32, 2: torch.int16, 1: torch.int8}
+    view = bits[got.element_size()]
+    return int((got.view(view) != want.view(view)).sum())
+
+
+class _CheckedKernels:
+    """Stand-ins for the three kernel wrappers of ``kernels.merge`` that hold
+    every launch against the kernel's plain version on the same inputs, as
+    it happens.  A wrapper counts its launches on the name it is bound to,
+    so while these stand in, ``launches`` of each counts the main path's."""
+
+    def __init__(self, torch, km):
+        self.torch, self.km = torch, km
+        self.real = {name: getattr(km, name) for name in KERNELS}
+        self.mismatches = dict.fromkeys(KERNELS, 0)
+        self.checked = dict.fromkeys(KERNELS, 0)
+
+    def _tally(self, name, pairs, n=None):
+        self.checked[name] += 1
+        self.mismatches[name] += sum(
+            _bit_mismatches(self.torch, a[:n], b[:n]) for a, b in pairs)
+
+    def __enter__(self):
+        km, real = self.km, self.real
+
+        def merge_tile(a, b, jb, kb):
+            out = real["merge_tile"](a, b, jb, kb)
+            self._tally("merge_tile", [(out, km.merge_tile_plain(a, b, jb, kb))])
+            return out
+
+        def merge_kway_tile(runs, cb, *, vals=None, out_len):
+            out = real["merge_kway_tile"](runs, cb, vals=vals, out_len=out_len)
+            want = km.merge_kway_tile_plain(runs, cb, vals=vals, out_len=out_len)
+            pairs = [(out, want)] if vals is None else list(zip(out, want))
+            # positions past the real total are unspecified
+            self._tally("merge_kway_tile", pairs, int(cb[-1].sum()))
+            return out
+
+        def merge_kway_tile_groups(keys, vals=None):
+            out = real["merge_kway_tile_groups"](keys, vals)
+            want = km.merge_kway_groups_plain(keys, vals)
+            self._tally("merge_kway_tile_groups",
+                        [p for p in zip(out, want) if p[0] is not None])
+            return out
+
+        for fn in (merge_tile, merge_kway_tile, merge_kway_tile_groups):
+            fn.launches = 0
+            setattr(km, fn.__name__, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.real.items():
+            setattr(self.km, name, fn)
+
+    def launches(self) -> dict:
+        self.torch.cuda.synchronize()
+        return {name: getattr(self.km, name).launches for name in KERNELS}
+
+
+def _expert_weights(torch, dev, experts, d: int, ff: int):
+    """Stacked bf16 ``(gate, up, down)`` of ``experts``, each expert drawn
+    from its own seed, so a rank draws just the experts it owns and one
+    process all of them, alike."""
+    n = len(experts)
+    gate, up = (torch.empty((n, d, ff), dtype=torch.bfloat16, device=dev)
+                for _ in range(2))
+    down = torch.empty((n, ff, d), dtype=torch.bfloat16, device=dev)
+    for q, e in enumerate(experts):
+        g = torch.Generator(device=dev).manual_seed(1000 + e)
+        for out, std in ((gate, d ** -0.5), (up, d ** -0.5), (down, ff ** -0.5)):
+            out[q] = torch.randn(out.shape[1:], generator=g, device=dev) * std
+    return gate, up, down
+
+
+class _DistRank:
+    """One rank of the distributed phase: every case on ``cuda:0`` through
+    ``repro_torch.distributed``, each result held against one process's
+    answer on the same card.  ``report`` collects what the parent prints."""
+
+    def __init__(self, rank: int, world: int, cut: int):
+        import torch
+        import torch.distributed as dist
+
+        from repro_torch import obs
+        from repro_torch import distributed as D
+        from repro_torch.kernels import _build, merge as km, ops
+
+        self.torch, self.dist, self.obs, self.D = torch, dist, obs, D
+        self.km, self.ops = km, ops
+        self.r, self.p, self.cut = rank, world, cut
+        self.g = dist.group.WORLD
+        self.dev = torch.device("cuda", 0)
+        self.report = {"rank": rank, "compiled": _build.build(), "cases": {}}
+        for name in _build.SOURCES:
+            _build.load(name)
+
+    # -- helpers --------------------------------------------------------------
+
+    def gen(self, seed: int):
+        return self.torch.Generator(device=self.dev).manual_seed(seed)
+
+    def keys(self, kind: str, n: int, seed: int):
+        """``n`` seeded keys, the same on every rank."""
+        torch, g = self.torch, self.gen(seed)
+        if kind == "uniform":
+            return torch.randint(-(1 << 31), (1 << 31) - 1, (n,), generator=g,
+                                 device=self.dev, dtype=torch.int32)
+        if kind in ("duplicates", "sorted"):
+            x = torch.randint(0, 16, (n,), generator=g, device=self.dev,
+                              dtype=torch.int32)
+            return torch.sort(x).values if kind == "sorted" else x
+        if kind == "int32 max":
+            x = torch.randint(-50, 50, (n,), generator=g, device=self.dev,
+                              dtype=torch.int32)
+            x[x > 45] = torch.iinfo(torch.int32).max
+            return x
+        x = torch.randn((n,), generator=g, device=self.dev)
+        u = torch.rand((n,), generator=g, device=self.dev)
+        for lo, v in ((0.00, float("inf")), (0.01, float("-inf")), (0.02, 0.0),
+                      (0.03, -0.0), (0.04, torch.finfo(torch.float32).max)):
+            x[(u >= lo) & (u < lo + 0.01)] = v
+        return x
+
+    def block(self, x):
+        w = x.shape[0] // self.p
+        return x[self.r * w:(self.r + 1) * w]
+
+    def wall_ms(self, fn, reps: int = 3):
+        """Median wall time of ``fn`` on every rank at once: a barrier,
+        then the call between two synchronisations."""
+        torch, times = self.torch, []
+        for _ in range(reps):
+            self.dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    def event_ms(self, fn, reps: int = 3):
+        """Median CUDA-event time of ``fn`` (no collective inside)."""
+        torch, times = self.torch, []
+        for _ in range(reps):
+            self.dist.barrier()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    def main_path(self, fn):
+        """``fn`` once with every kernel launch held against its plain
+        version and the collectives counted (obs on): ``(result,
+        launches, checked, mismatches, records)``."""
+        with self.obs.capture() as records, \
+                _CheckedKernels(self.torch, self.km) as ck:
+            out = fn()
+            launches = ck.launches()
+        return out, launches, ck.checked, ck.mismatches, list(records)
+
+    @staticmethod
+    def collectives(records) -> dict:
+        """Bytes delivered here by op, host reads, from the obs records."""
+        out = {"host_reads": 0}
+        for rec in records:
+            if rec["metric"] == "collectives.bytes":
+                op = rec["labels"]["op"]
+                out[op] = out.get(op, 0) + int(rec["value"])
+            elif rec["metric"] == "collectives.host_reads":
+                out["host_reads"] += int(rec["value"])
+        return out
+
+    @staticmethod
+    def gauge(records, metric: str):
+        """The value of the one ``metric`` record among ``records``."""
+        (value,) = [rec["value"] for rec in records if rec["metric"] == metric]
+        return value
+
+    def case(self, name: str, **fields) -> None:
+        self.report["cases"][name] = fields
+
+    # -- cases ----------------------------------------------------------------
+
+    def splitters(self) -> None:
+        """(a) k-way cuts of every block bound and pairwise co-ranks, over
+        collectives, against one process's search of the gathered runs."""
+        from repro_torch.core.corank import co_rank
+        from repro_torch.core.engine import kway_round_bound, pairwise_lockstep_rounds
+        from repro_torch.core.kway import co_rank_kway_batch
+
+        torch, D, p, r = self.torch, self.D, self.p, self.r
+        w = 1 << (DIST_KEYS_LOG2 - self.cut)
+        bounds = torch.tensor([r * w, (r + 1) * w], dtype=torch.int32,
+                              device=self.dev)
+        for kind in ("uniform", "duplicates"):
+            runs = torch.sort(self.keys(kind, p * w, 11).reshape(p, w), dim=1).values
+            with self.obs.capture() as recs:
+                cuts = D.distributed_co_rank_kway(bounds, runs[r], self.g)
+            want = co_rank_kway_batch(bounds, runs)
+            self.case(f"splitters kway {kind}", differ=_bit_mismatches(torch, cuts, want),
+                      rounds=self.gauge(recs, "splitters.kway_rounds"),
+                      bound=kway_round_bound(w),
+                      ms=self.wall_ms(lambda: D.distributed_co_rank_kway(bounds, runs[r], self.g)))
+            del runs
+        m = 1 << (DIST_MERGE_LOG2 - self.cut)
+        a = torch.sort(self.keys("duplicates", m, 12)).values
+        b = torch.sort(self.keys("duplicates", m, 13)).values
+        s = 2 * m // p
+        i = torch.tensor([r * s, r * s + s // 3], dtype=torch.int32, device=self.dev)
+        with self.obs.capture() as recs:
+            j, k = D.distributed_co_rank(i, self.block(a), self.block(b), self.g)
+        want = co_rank(i, a, b)
+        self.case("splitters pairwise", differ=_bit_mismatches(torch, j, want.j)
+                  + _bit_mismatches(torch, k, want.k),
+                  rounds=self.gauge(recs, "splitters.pairwise_rounds"),
+                  bound=pairwise_lockstep_rounds(m, m),
+                  ms=self.wall_ms(lambda: D.distributed_co_rank(i, self.block(a), self.block(b), self.g)))
+
+    def sorts(self) -> None:
+        """(b) ``sharded_sort`` on both strategies, four inputs; the
+        permutation through a second exchange; a truncating capacity."""
+        from repro_torch.core.mergesort import sort_key_val
+        from repro_torch.distributed.api import ragged_merge
+
+        torch, D, p, r, g = self.torch, self.D, self.p, self.r, self.g
+        w = 1 << (DIST_KEYS_LOG2 - self.cut)
+        bounds = torch.tensor([r * w, (r + 1) * w], dtype=torch.int32, device=self.dev)
+        gidx = r * w + torch.arange(w, dtype=torch.int32, device=self.dev)
+        for kind in ("uniform", "duplicates", "sorted", "float32 specials"):
+            x = self.keys(kind, p * w, 21)
+            # one process's stable order; for floats + 0.0 folds -0.0 into
+            # 0.0, which the card's radix sort would order apart (they
+            # compare equal)
+            order = torch.sort(x + 0.0 if x.is_floating_point() else x,
+                               stable=True).indices
+            want_k, want_i = self.block(x[order]), self.block(order).to(torch.int32)
+            del order
+            shard = self.block(x)
+            for strategy in ("exchange", "allgather"):
+                out, launches, checked, mm, recs = self.main_path(
+                    lambda: D.sharded_sort(shard, g, strategy=strategy))
+                fields = dict(differ=_bit_mismatches(torch, out, want_k),
+                              launches=launches, checked=checked, mismatches=mm,
+                              wire=self.collectives(recs))
+                if strategy == "exchange":
+                    fields["padding_slots"] = int(self.gauge(recs, "exchange.padding_slots"))
+                    keys, idx = sort_key_val(shard, gidx)
+                    cuts = D.distributed_co_rank_kway(bounds, keys, g)
+                    seg_k, lengths = D.exchange_block(keys, cuts, g)
+                    seg_i, _ = D.exchange_block(idx, cuts, g)
+                    out_k, out_i = ragged_merge(seg_k, lengths, w, vals=seg_i)
+                    fields["perm_differ"] = (_bit_mismatches(torch, out_k, want_k)
+                                             + _bit_mismatches(torch, out_i, want_i))
+                    del keys, idx, seg_k, seg_i, out_k, out_i
+                if kind in ("uniform", "sorted"):
+                    fields["ms"] = self.timings(shard, strategy, bounds)
+                self.case(f"sort {kind} {strategy}", **fields)
+                del out
+            if kind == "sorted":
+                self.truncation(shard, want_k, bounds, w // 2)
+            del x, want_k, want_i, shard
+        if r == 0:
+            x = self.keys("uniform", p * w, 21)
+            self.report["torch_sort_ms"] = self.event_ms(lambda: torch.sort(x, stable=True))
+            del x
+        else:
+            self.event_ms(lambda: None)  # the barriers of rank 0's timing
+
+    def timings(self, shard, strategy, bounds) -> dict:
+        """Milliseconds of the whole sort and (exchange) of its parts:
+        device-only parts by CUDA events, parts with collectives by wall."""
+        from repro_torch.core.mergesort import merge_sort
+        from repro_torch.distributed.api import ragged_merge
+
+        D, g = self.D, self.g
+        ms = {"whole": self.wall_ms(lambda: D.sharded_sort(shard, g, strategy=strategy)),
+              "local sort": self.event_ms(lambda: merge_sort(shard))}
+        if strategy == "exchange":
+            run = merge_sort(shard)
+            cuts = D.distributed_co_rank_kway(bounds, run, g)
+            seg, lengths = D.exchange_block(run, cuts, g)
+            ms["splitters"] = self.wall_ms(lambda: D.distributed_co_rank_kway(bounds, run, g))
+            ms["exchange"] = self.wall_ms(lambda: D.exchange_block(run, cuts, g))
+            ms["local merge"] = self.event_ms(lambda: ragged_merge(seg, lengths, run.shape[0]))
+        return ms
+
+    def truncation(self, shard, want_k, bounds, cap: int) -> None:
+        """The sorted input at ``capacity = w // 2``: each block arrives from
+        one peer whole, so half of it is dropped, accounted exactly, and the
+        block's tail is zero-filled."""
+        from repro_torch.core.mergesort import merge_sort
+
+        torch, D, g = self.torch, self.D, self.g
+        run = merge_sort(shard)
+        out, launches, checked, mm, _ = self.main_path(
+            lambda: D.sharded_merge_kway(run, g, capacity=cap))
+        cuts = D.distributed_co_rank_kway(bounds, run, g)
+        _, lengths = D.exchange_block(run, cuts, g, capacity=cap)
+        planned = cuts[1] - cuts[0]
+        kept = int(lengths.sum())
+        self.case("truncation sorted capacity w/2", launches=launches, checked=checked,
+                  mismatches=mm, dropped=int((planned - lengths).sum()),
+                  expected_dropped=shard.shape[0] - kept,
+                  clipped=bool(torch.equal(lengths, torch.clamp(planned, max=cap))),
+                  tail_nonzero=int((out[kept:] != 0).sum()),
+                  differ=_bit_mismatches(torch, out[:kept], want_k[:kept]))
+
+    def host_sort(self) -> None:
+        """(c) ``sharded_sort_host`` of 2^26 + 3 keys with real int32 max
+        keys: every rank gets the whole sorted array."""
+        torch = self.torch
+        n = self.p * (1 << (DIST_KEYS_LOG2 - self.cut)) + 3
+        x = self.keys("int32 max", n, 31)
+        want = torch.sort(x, stable=True).values
+        out, launches, checked, mm, recs = self.main_path(
+            lambda: self.D.sharded_sort_host(x))
+        self.case("sharded_sort_host", n=n, differ=_bit_mismatches(torch, out, want),
+                  launches=launches, checked=checked, mismatches=mm,
+                  wire=self.collectives(recs),
+                  ms=self.wall_ms(lambda: self.D.sharded_sort_host(x), 2))
+
+    def merges(self) -> None:
+        """(d) ``distributed_merge``, both strategies, m = n = 2^25 int32
+        with real int32 max keys, against ``ops.stable_merge`` in one
+        process (computed before the counted run)."""
+        torch, D, g = self.torch, self.D, self.g
+        m = 1 << (DIST_MERGE_LOG2 - self.cut)
+        a = torch.sort(self.keys("int32 max", m, 41)).values
+        b = torch.sort(self.keys("int32 max", m, 42)).values
+        want = self.block(self.ops.stable_merge(a, b))
+        sa, sb = self.block(a), self.block(b)
+        for strategy in ("allgather", "corank"):
+            out, launches, checked, mm, recs = self.main_path(
+                lambda: D.distributed_merge(sa, sb, g, strategy=strategy))
+            self.case(f"merge {strategy}", differ=_bit_mismatches(torch, out, want),
+                      launches=launches, checked=checked, mismatches=mm,
+                      wire=self.collectives(recs),
+                      ms=self.wall_ms(lambda: D.distributed_merge(sa, sb, g, strategy=strategy)))
+
+    def moe(self) -> None:
+        """(e) ``dropless_moe_ffn`` at full width, bf16, uniform and one-hot
+        routing: against one process's dropless layer (rank 0), the plan on
+        both merge backends, overflow 0, then a truncating capacity."""
+        import gc
+
+        for spec in DIST_MOE:
+            self.moe_model(*spec)
+            gc.collect()
+            self.torch.cuda.empty_cache()
+
+    def moe_model(self, name, n_exp, k, d, ff, t_loc) -> None:
+        import os as os_
+
+        from repro_torch.distributed import _collectives as C
+        from repro_torch.models.moe import _dropless_moe
+
+        torch, D, p, r, g = self.torch, self.D, self.p, self.r, self.g
+        t_loc >>= self.cut
+        t = p * t_loc
+        e_per = n_exp // p
+        torch.cuda.reset_peak_memory_stats()
+        wg, wu, wd = _expert_weights(torch, self.dev, range(r * e_per, (r + 1) * e_per), d, ff)
+        gt = self.gen(51)
+        xt_all = torch.randn((t, d), generator=gt, device=self.dev).to(torch.bfloat16)
+        w_all = torch.rand((t, k), generator=gt, device=self.dev)
+        w_all = w_all / w_all.sum(dim=1, keepdim=True)
+        routings = {
+            "uniform": torch.rand((t, n_exp), generator=gt, device=self.dev
+                                  ).argsort(dim=1)[:, :k].to(torch.int32),
+            "one-hot": torch.arange(k, dtype=torch.int32, device=self.dev
+                                    ).expand(t, k).contiguous(),
+        }
+        xt, w = self.block(xt_all), self.block(w_all)
+        n = t_loc * k
+        backend_var = self.ops.BACKEND_ENV_VAR
+        for routing, experts_all in routings.items():
+            experts = self.block(experts_all)
+            (out, plan), launches, checked, mm, recs = self.main_path(
+                lambda: D.dropless_moe_ffn(xt, experts, w, wg, wu, wd, n_exp, g))
+            overflow = sum(int(rec["value"]) for rec in recs
+                           if rec["metric"] == "moe.overflow")
+            os_.environ[backend_var] = "torch"
+            try:
+                plain = D.dropless_dispatch(xt, experts, n_exp, g)
+            finally:
+                os_.environ.pop(backend_var)
+            plan_differ = sum(
+                _bit_mismatches(torch, getattr(plan, f), getattr(plain, f))
+                for f in ("sorted_e", "sorted_idx", "group_sizes", "perm",
+                          "recv_lengths", "planned"))
+            del plain
+            # one process's dropless layer on all the tokens (rank 0, with
+            # every expert); the other ranks free their share first
+            outs = C.all_gather(out, g).reshape(t, d)
+            fields = dict(launches=launches, checked=checked, mismatches=mm,
+                          overflow=overflow, plan_differ=plan_differ,
+                          wire=self.collectives(recs),
+                          rows_received=int(plan.recv_lengths.sum()),
+                          ms=self.wall_ms(lambda: D.dropless_moe_ffn(
+                              xt, experts, w, wg, wu, wd, n_exp, g), 2))
+            if routing == "one-hot":
+                cap = n // 4
+                (_, plan_c), _, _, _, recs_c = self.main_path(
+                    lambda: D.dropless_moe_ffn(xt, experts, w, wg, wu, wd, n_exp, g, cap))
+                fields["capacity"] = cap
+                fields["capacity_overflow"] = sum(int(rec["value"]) for rec in recs_c
+                                                  if rec["metric"] == "moe.overflow")
+                fields["capacity_planned_minus_received"] = int(
+                    (plan_c.planned - plan_c.recv_lengths).sum())
+                fields["capacity_clipped"] = bool(torch.equal(
+                    plan_c.recv_lengths, torch.clamp(plan_c.planned, max=cap)))
+                del plan_c
+            del plan, out
+            fields["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            if r == 0:
+                fields.update(self.moe_single(name, n_exp, k, d, ff, xt_all, w_all,
+                                              experts_all, outs, _dropless_moe))
+            self.dist.barrier()
+            self.case(f"moe {name} {routing}", **fields)
+        del wg, wu, wd
+
+    def moe_single(self, name, n_exp, k, d, ff, xt_all, w_all, experts_all, outs,
+                   dropless) -> dict:
+        """One process's dropless layer on every token with every expert,
+        against the ranks' gathered output (relative L2, and bit-equality)."""
+        torch = self.torch
+        params = dict(zip(("w_gate", "w_up", "w_down"),
+                          _expert_weights(torch, self.dev, range(n_exp), d, ff)))
+        want = dropless(params, xt_all, w_all, experts_all, n_exp, k)
+        del params
+        rel = float((outs.float() - want.float()).norm() / want.float().norm())
+        return dict(rel_l2=rel, bit_equal=bool(torch.equal(outs, want)),
+                    finite=bool(torch.isfinite(outs).all()),
+                    single_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+    def psum(self) -> None:
+        """(f) ``compressed_psum`` of 2^24 float32 a rank against an exact
+        (float64) all-reduce, within the quantisation bound."""
+        from repro_torch.distributed import _collectives as C
+        from repro_torch.train.compress import BLOCK, compressed_psum
+
+        torch, p = self.torch, self.p
+        n = 1 << (DIST_KEYS_LOG2 - self.cut)
+        x = torch.randn((n,), generator=self.gen(60 + self.r), device=self.dev) * (1 + self.r)
+        got = compressed_psum(x, self.g, self.gen(70 + self.r))
+        exact = C.psum(x.double(), self.g)
+        scale = C.pmax(x.abs().reshape(-1, BLOCK).amax(dim=1) / 127.0, self.g)
+        bound = 1.5 * p * scale.double().repeat_interleave(BLOCK) + 1e-6 * exact.abs()
+        err = (got.double() - exact).abs()
+        self.case("compressed_psum", n=n, max_err=float(err.max()),
+                  max_err_over_bound=float((err / bound).max()),
+                  mean_err=float((got.double() - exact).mean()),
+                  bound_max=float(bound.max()),
+                  ms=self.wall_ms(lambda: compressed_psum(x, self.g, self.gen(70 + self.r))))
+
+    def run(self) -> dict:
+        for case in (self.splitters, self.sorts, self.host_sort, self.merges,
+                     self.moe, self.psum):
+            t0 = time.perf_counter()
+            case()
+            self.report.setdefault("seconds", {})[case.__name__] = time.perf_counter() - t0
+        return self.report
+
+
+def distributed_rank(rank: int, world: int, port: int, cut: int, queue) -> None:
+    """Entry of a rank process of the distributed phase: join the gloo
+    group on ``cuda:0``, run every case, send the report (or the error)
+    to the parent."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                                rank=rank, world_size=world,
+                                timeout=datetime.timedelta(seconds=120))
+        try:
+            queue.put(_DistRank(rank, world, cut).run())
+        finally:
+            dist.destroy_process_group()
+    except Exception:
+        queue.put({"rank": rank, "error": traceback.format_exc()})
+        raise
 
 
 class backend_env:
@@ -1772,7 +2485,7 @@ def main() -> int:
     for phase in (smoke.phase_build, smoke.phase_merge, smoke.phase_merge_kway,
                   smoke.phase_merge_window, smoke.phase_external,
                   smoke.phase_serve, smoke.phase_moe, smoke.phase_ssm,
-                  smoke.phase_train):
+                  smoke.phase_train, smoke.phase_distributed):
         t0 = time.perf_counter()
         try:
             phase()

@@ -17,7 +17,8 @@
 
 The reference's ``specs`` and ``mesh=`` arguments place leaves on a
 device mesh; the port restores onto the devices of the tree it is given,
-and re-sharding waits for its distributed layer.
+and re-sharding waits for the port's mesh and sharding (ROADMAP.md,
+Queue 1 item 2).
 """
 
 from __future__ import annotations

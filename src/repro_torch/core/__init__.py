@@ -1,7 +1,7 @@
 """Core: co-ranking and load-balanced stable merge (torch port).
 
-Exports the ported part of ``repro.core``; the distributed shim is not
-ported yet.
+Exports what ``repro.core`` exports; the deprecated shim
+``repro_torch.core.distributed`` re-exports ``repro_torch.distributed``.
 """
 
 from repro_torch.core.corank import CoRankResult, co_rank, co_rank_batch

@@ -24,8 +24,9 @@ assignment's weighted output to its unique index ``token * k + choice``
 and sum over the choice axis -- a fixed order, with no atomics, the order
 of :func:`moe_dense_reference` (the reference's capacity combine adds
 into the token rows instead; the two agree within float32 rounding).
-GShard-style local dispatch (``dispatch_groups > 1``) needs the slot
-exchange of the distributed slice and raises.
+GShard-style local dispatch (``dispatch_groups > 1``) fills per-group
+capacity slots and swaps the (group, expert) slot axes with
+``distributed.exchange.slot_transpose``, as the reference does.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.mergesort import sort_key_val
 from repro_torch.core.topk import merge_topk_batch
+from repro_torch.distributed.exchange import slot_transpose
 from repro_torch.models.layers import init_mlp, mlp, truncated_normal
 
 __all__ = [
@@ -244,6 +246,31 @@ def _dispatch_combine_one_group(xt, w, experts, n_experts, top_k, capacity):
     return ex_in, combine
 
 
+def _capacity_moe(params, xt, w, experts, n_experts, top_k, capacity, g):
+    """Capacity dispatch over ``g`` local groups of ``t / g`` tokens (one
+    group: the whole batch).
+
+    All groups dispatch at once: group ``i``'s expert ``e`` is the virtual
+    expert ``i * E + e`` of one stable sort, whose segments are the
+    groups' own sorted segments, so slot positions, capacity and the
+    latest-first drops are per group.  The ``(g, E, C, d)`` slots swap to
+    ``(E, g, C, d)`` for one batched product per expert and back.
+    """
+    t, d = xt.shape
+    dt = xt.dtype
+    group_of = torch.arange(t, dtype=torch.int32, device=xt.device) // (t // g)
+    ex_in, combine = _dispatch_combine_one_group(
+        xt, w, experts + group_of[:, None] * n_experts, g * n_experts, top_k,
+        capacity)
+    ex_g = slot_transpose(ex_in.reshape(g, n_experts, capacity, d))
+    ex_g = ex_g.reshape(n_experts, g * capacity, d)  # (E, g*C, d)
+    gate = torch.bmm(ex_g, params["w_gate"].to(dt))
+    up = torch.bmm(ex_g, params["w_up"].to(dt))
+    ex_out = torch.bmm(F.silu(gate) * up, params["w_down"].to(dt))
+    ex_out = slot_transpose(ex_out.reshape(n_experts, g, capacity, d))
+    return combine(ex_out.reshape(g * n_experts, capacity, d))
+
+
 def moe_apply(params, x: torch.Tensor, *, n_experts: int, top_k: int,
               capacity_factor: float, scoring: str = "softmax",
               dispatch_groups: int = 1,
@@ -253,8 +280,13 @@ def moe_apply(params, x: torch.Tensor, *, n_experts: int, top_k: int,
     ``dispatch``: ``"capacity"`` (fixed ``capacity_factor`` slots,
     overflow dropped latest-first) or ``"dropless"`` (exact segments, zero
     drops; ``capacity_factor`` and ``dispatch_groups`` are ignored).
-    Capacity dispatch over ``dispatch_groups > 1`` local groups raises
-    ``NotImplementedError``.
+
+    ``dispatch_groups > 1`` is GShard-style local dispatch: the tokens
+    split into ``g`` groups (``g`` the largest divisor of the token count
+    not above ``dispatch_groups``), each group sorts and fills its own
+    ``(E, C, d)`` capacity slots, and the ``(g, E)`` slot axes swap for
+    the expert products and back (``slot_transpose``).  Capacity is per
+    group.
     """
     if dispatch not in ("capacity", "dropless"):
         raise ValueError(f"moe_apply: unknown dispatch {dispatch!r} "
@@ -272,18 +304,11 @@ def moe_apply(params, x: torch.Tensor, *, n_experts: int, top_k: int,
         g = max(1, min(dispatch_groups, t))
         while t % g:
             g -= 1
-        if g > 1:
-            raise NotImplementedError(
-                f"moe_apply: capacity dispatch over {g} local groups needs "
-                "the slot exchange of the distributed slice, which is not "
-                "ported yet (ROADMAP.md, Queue 1 item 4)")
-        capacity = max(int(math.ceil(t * top_k / n_experts * capacity_factor)),
+        tg = t // g
+        capacity = max(int(math.ceil(tg * top_k / n_experts * capacity_factor)),
                        top_k)
-        ex_in, combine = _dispatch_combine_one_group(
-            xt, w, experts, n_experts, top_k, capacity)
-        gate = torch.bmm(ex_in, params["w_gate"].to(dt))
-        up = torch.bmm(ex_in, params["w_up"].to(dt))
-        out = combine(torch.bmm(F.silu(gate) * up, params["w_down"].to(dt)))
+        out = _capacity_moe(params, xt, w, experts, n_experts, top_k,
+                            capacity, g)
     if "shared" in params:
         out = out + _shared(params, x, t, d)
     return out.reshape(b, s, d)

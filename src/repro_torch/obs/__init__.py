@@ -78,10 +78,26 @@ Spans: ``repro.stable_merge``, ``repro.stable_merge_kway``,
 ``repro.merge_window``, ``repro.stable_sort`` (kernel dispatch) and
 ``repro.merge_kway`` sit inside ``obs.span``; ``repro.external_sort`` and
 the launcher's ``serve.prefill`` inside ``obs.host_span``; each decode
-step inside ``obs.step_span("decode", i)``.  The reference's distributed
-metrics (``splitters.*``, ``exchange.*``, ``moe.*`` of the expert-parallel
-exchange) wait for the port of ``distributed/``, and its
-``attach_hlo_report`` is XLA's (ROADMAP.md, Queue 1 items 4 and 6).
+step inside ``obs.step_span("decode", i)``.  The reference's
+``attach_hlo_report`` is XLA's and has no counterpart yet (ROADMAP.md,
+Queue 1 item 2).
+
+== Distributed layer (``repro_torch.distributed``; label ``device`` = rank) ==
+``splitters.pairwise_rounds`` / ``splitters.kway_rounds`` gauges: the
+                             lock-step rounds of the distributed co-ranks.
+``splitters.segment_cut_scalars`` counter: int32 scalars of one segment-
+                             cut round (``p * (E + 1)``).
+``exchange.send_lengths``, ``exchange.peer_bytes``,
+``exchange.block_elements``, ``exchange.padding_slots``,
+``exchange.length_skew``     gauges of one ``exchange_block``.
+``moe.planned_per_source``, ``moe.recv_per_source``, ``moe.group_sizes``,
+``moe.routing_skew`` gauges and ``moe.overflow`` counter (planned minus
+                             received) of one dropless dispatch.
+``collectives.bytes``        counter: bytes one collective delivered to
+                             this rank; labels ``op``, ``dtype``,
+                             ``elements``.
+``collectives.host_reads``   counter: reads of a ragged exchange's split
+                             sizes on the host (one an exchange).
 """
 
 from repro_torch.obs.registry import (

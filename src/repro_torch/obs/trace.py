@@ -15,7 +15,7 @@ Plus the opt-in trace dump (:func:`start_profile` / :func:`stop_profile`,
 ``--profile-steps`` on the launcher): a ``torch.profiler.profile`` of the
 CPU, and of the card when there is one, written as a Chrome trace under
 ``log_dir``.  The reference's ``attach_hlo_report`` reads XLA's compiled
-HLO and has no counterpart here (ROADMAP.md, Queue 1 item 6).
+HLO and has no counterpart here (ROADMAP.md, Queue 1 item 2).
 """
 
 from __future__ import annotations

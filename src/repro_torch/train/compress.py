@@ -6,15 +6,17 @@ rounding (unbiased: the expected quantised value is the input), which is
 the payload of the reference's compressed all-reduce.  The random bits
 come from an explicit ``torch.Generator``, so they are not JAX's: the
 rounding is held to its bounds and its mean, not to the reference's bits.
-``compressed_psum`` needs a process group and comes with the port's
-distributed layer.
+``compressed_psum`` is the all-reduce of that payload over a
+``torch.distributed`` process group.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["BLOCK", "quantize_int8", "dequantize_int8"]
+from repro_torch.distributed import _collectives as C
+
+__all__ = ["BLOCK", "quantize_int8", "dequantize_int8", "compressed_psum"]
 
 BLOCK = 256
 
@@ -44,3 +46,19 @@ def dequantize_int8(q: torch.Tensor, scales: torch.Tensor, n: int, shape,
                     dtype) -> torch.Tensor:
     x = q.float() * scales[:, None]
     return x.reshape(-1)[:n].reshape(shape).to(dtype)
+
+
+def compressed_psum(x: torch.Tensor, group, gen: torch.Generator) -> torch.Tensor:
+    """Sum of every rank's ``x`` over ``group`` with an int8 payload:
+    quantise, reduce as int32, dequantise.
+
+    The block scales are reduced with a max (a conservative shared scale,
+    ``nb`` float32 a rank) so that the int8 sum is well defined; each rank
+    requantises its blocks to the shared scale before the sum.
+    """
+    q, scales, n = quantize_int8(x, gen)
+    smax = C.pmax(scales, group)
+    requant = torch.clamp(torch.round(q.float() * (scales / smax)[:, None]),
+                          -127, 127).to(torch.int8)
+    total = C.psum(requant.to(torch.int32), group)
+    return dequantize_int8(total, smax, n, x.shape, x.dtype)

@@ -44,6 +44,11 @@ def fresh_import():
         "import repro_torch.data, repro_torch.data.pipeline\n"
         "import repro_torch.checkpoint, repro_torch.checkpoint.checkpointer\n"
         "import repro_torch.launch.train\n"
+        "import repro_torch.distributed, warnings\n"
+        "with warnings.catch_warnings(record=True) as caught:\n"
+        "    warnings.simplefilter('always')\n"
+        "    import repro_torch.core.distributed\n"
+        "print('shim warns', [w.category.__name__ for w in caught])\n"
         "bad = sorted(m for m, mod in sys.modules.items() if mod is not None "
         "and (m in ('jax', 'repro') or m.startswith(('jax.', 'repro.'))))\n"
         "print('foreign', bad)\n"
@@ -63,3 +68,7 @@ def test_package_imports_with_jax_and_repro_blocked(fresh_import):
 
 def test_importing_the_port_builds_nothing(fresh_import):
     assert "built []" in fresh_import
+
+
+def test_distributed_shim_warns_on_import(fresh_import):
+    assert "shim warns ['DeprecationWarning']" in fresh_import

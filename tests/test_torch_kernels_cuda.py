@@ -472,3 +472,64 @@ def test_route_topk_on_grouped_launch_on_card(cuda_device, monkeypatch,
               else torch.softmax(logits, -1))
     order = torch.sort(-scores, dim=1, stable=True).indices[:, :k]
     assert torch.equal(e.long(), order)
+
+
+def _sharded_sort_rank(rank, world, port, n, queue):
+    """One gloo rank on ``cuda:0``: ``sharded_sort`` of its shard of ``n``
+    seeded keys on both strategies, with the kernels' launches."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharded_sort
+
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        dev = torch.device("cuda", 0)
+        g = torch.Generator(device=dev).manual_seed(17)
+        x = torch.randint(-50, 50, (n,), generator=g, device=dev,
+                          dtype=torch.int32)
+        x[x > 40] = torch.iinfo(torch.int32).max
+        w = n // world
+        km.merge_kway_tile.launches = km.merge_kway_tile_groups.launches = 0
+        out = {s: sharded_sort(x[rank * w:(rank + 1) * w], dist.group.WORLD,
+                               strategy=s) for s in ("exchange", "allgather")}
+        want = torch.sort(x, stable=True).values[rank * w:(rank + 1) * w]
+        queue.put((rank, {s: bool(torch.equal(o, want)) for s, o in out.items()},
+                   km.merge_kway_tile.launches,
+                   km.merge_kway_tile_groups.launches))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_sort_two_gloo_ranks_on_card(cuda_device):
+    """Two gloo ranks share the card: each rank's block of the sharded
+    sort equals ``torch.sort(stable=True)``'s, and both ranks launched the
+    local sort's grouped kernel and the ragged merge's ``merge_kway_tile``."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=_sharded_sort_rank,
+                         args=(r, 2, port, 2 * 50_000, queue))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        got = sorted(queue.get(timeout=300) for _ in procs)
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    assert [p.exitcode for p in procs] == [0, 0]
+    for _, equal, kway, groups in got:
+        assert all(equal.values()), equal
+        assert kway > 0 and groups > 0

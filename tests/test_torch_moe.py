@@ -238,6 +238,27 @@ def test_dense_reference_and_dropless_agree_with_reference(scoring):
     _close(drop, dense.numpy())
 
 
+@pytest.mark.parametrize("router", ["random", "one_hot"])
+@pytest.mark.parametrize("groups", [2, 4])
+def test_moe_apply_dispatch_groups_matches_reference(groups, router):
+    """GShard-style local dispatch: per-group capacity slots (factor 1.25
+    drops assignments within each group), the slot transpose and back,
+    against the reference's ``moe_apply`` with the same arguments on one
+    JAX device."""
+    ref_p, p = _both(0, _one_hot_router() if router == "one_hot" else None)
+    x = _x(seed=5)
+    kw = dict(n_experts=E, top_k=K, capacity_factor=1.25,
+              dispatch="capacity", dispatch_groups=groups)
+    want = jax.jit(functools.partial(ref_moe.moe_apply, **kw))(ref_p,
+                                                               jnp.asarray(x))
+    got = moe.moe_apply(p, torch.from_numpy(x), **kw)
+    assert got.shape == x.shape
+    _close(got, want)
+    one = moe.moe_apply(p, torch.from_numpy(x),
+                        **{**kw, "dispatch_groups": 1})
+    assert not torch.equal(got, one)  # per-group capacity drops differ
+
+
 def test_capacity_without_drops_matches_dropless():
     _, p = _both(0)
     x = torch.from_numpy(_x(seed=4))
@@ -272,8 +293,6 @@ def test_unported_options_raise():
     _, p = _both(0)
     x = torch.from_numpy(_x())
     kw = dict(n_experts=E, top_k=K, capacity_factor=1.25)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 4"):
-        moe.moe_apply(p, x, dispatch_groups=2, **kw)
     with pytest.raises(ValueError, match="dispatch"):
         moe.moe_apply(p, x, dispatch="bogus", **kw)
     # the dispatch sort is the co-rank merge sort: a config asking for
