@@ -120,6 +120,30 @@ full data size through the entry points a user calls:
                    against its plain version as it happens; then an NCCL
                    group of world size 1 (the card count) in this process.
 
+11. dryrun       — the mesh layer and the dry-run: (a) ``python -m
+                   repro_torch.launch.dryrun`` in subprocesses for one
+                   ``decode_32k`` cell of every arch on the 16x16 mesh and
+                   one on 2x16x16 (fake CUDA tensors on ``"fake"`` groups
+                   of 256 and 512 ranks; every MoE arch's top-k and
+                   dispatch sort go through the kernels' custom ops), each
+                   ``ok`` or ``skipped``; the dispatcher's cost a call of
+                   the grouped launch's custom op against the direct call;
+                   (b) three calibration cells (granite-3-2b train at
+                   batch 8, seq 2048; qwen3-0.6b decode at batch 16,
+                   max_len 1024; dbrx-132b, 4 layers, bf16 storage, decode
+                   at batch 8), each dry-run on a mesh of one and then run
+                   for real: equal argument bytes and dot FLOPs, granite's
+                   FLOPs within 5% of ``train_step_flops``, the predicted
+                   peak within 15% of ``max_memory_allocated``, and the
+                   real dbrx step's grouped launches held against their
+                   plain version; (c) qwen3-0.6b at full width and depth
+                   on a (2, 2) mesh of 4 gloo ranks sharing the card:
+                   every rank's dot FLOPs and collective bytes equal a
+                   fake group's prediction, the float32 logits equal one
+                   process's (relative L2 at most 1e-5), a checkpoint
+                   saved on (2, 2) restores on (4, 1) and whole, bit for
+                   bit.
+
 Every phase sets the kernels' launch counters to 0 just before its main
 path and reads them just after; it holds each kernel's output against the
 kernel's plain PyTorch version on the same inputs on the card (bit for
@@ -211,6 +235,25 @@ DIST_MERGE_LOG2 = 25
 DIST_MOE = (("dbrx-132b", 16, 4, 6144, 10752, 2048),
             ("deepseek-v3-671b", 256, 8, 7168, 2048, 1024))
 DIST_TIMEOUT_S = 600
+# Phase dryrun: (a) one cell of every arch on the 16x16 mesh and one on
+# 2x16x16, fake CUDA tensors, in subprocesses; (b) calibration cells, each
+# dry-run on a mesh of one and then run for real (arch, kind, seq, batch,
+# config overrides); (c) one decode cell on a (2, 2) mesh of gloo ranks
+# that share the card (arch, seq, batch).
+DRYRUN_CELLS = [(arch, "decode_32k", False) for arch in (
+    "dbrx-132b", "deepseek-67b", "deepseek-v3-671b", "granite-3-2b",
+    "internvl2-26b", "mamba2-2.7b", "musicgen-medium", "qwen1.5-110b",
+    "qwen3-0.6b", "zamba2-1.2b")] + [("qwen3-0.6b", "decode_32k", True)]
+DRYRUN_WORKERS = 4
+DRYRUN_CALIBRATION = (
+    ("granite-3-2b", "train", TRAIN_SEQ, TRAIN_BATCH, {}),
+    ("qwen3-0.6b", "decode", 1024, 16, {}),
+    ("dbrx-132b", "decode", 1024, 8, {"n_layers": 4, "param_dtype": "bfloat16"}),
+)
+DRYRUN_SHARDED = ("qwen3-0.6b", 1024, 8)
+DRYRUN_PEAK_TOLERANCE = 0.15  # predicted peak memory against the allocator's
+DRYRUN_FLOPS_TOLERANCE = 0.05  # granite's FLOPs against train_step_flops
+DRYRUN_LOGITS_L2 = 1e-5  # sharded against one process, float32
 
 
 def log(msg: str) -> None:
@@ -741,8 +784,12 @@ class Smoke:
         seen = []
         real = km.merge_kway_tile_groups
 
+        def local(t):  # a DTensor launch's inputs are its local shards
+            return t.to_local() if hasattr(t, "to_local") else t
+
         def capture(keys, vals=None):
-            seen.append((keys.clone(), None if vals is None else vals.clone()))
+            seen.append((local(keys).clone(),
+                         None if vals is None else local(vals).clone()))
             return real(keys, vals)
 
         capture.launches = 0  # the wrapper counts on the name it is bound to
@@ -1365,14 +1412,18 @@ class Smoke:
     def train_step_flops(self, cfg) -> float:
         """Operations of one train step under full remat: the layers' and
         the tied unembedding's products forward, again in the recompute and
-        twice over in the backward (8 per weight per token), and the
-        attention's two score products (no causal skip: every KV chunk is
-        computed) four times over."""
+        twice over in the backward (8 per weight per token), but each
+        layer's MLP down projection, whose output the backward does not
+        read, so the recompute stops before it (``torch.utils.checkpoint``'s
+        early stop: 6 per weight per token); and the attention's two score
+        products (no causal skip: every KV chunk is computed) four times
+        over."""
         tokens = TRAIN_BATCH * TRAIN_SEQ
         layer = cfg._attn_params() + cfg._ffn_params()
         attn = 4 * TRAIN_BATCH * cfg.n_heads * TRAIN_SEQ ** 2 * cfg.resolved_head_dim
+        down = cfg.d_ff * cfg.d_model
         return (8 * tokens * (cfg.n_layers * layer + cfg.vocab * cfg.d_model)
-                + 4 * cfg.n_layers * attn)
+                - 2 * tokens * cfg.n_layers * down + 4 * cfg.n_layers * attn)
 
     def train_main(self) -> float:
         """(a) The launcher at full width and depth; (b) each timed step's
@@ -1802,6 +1853,299 @@ class Smoke:
                 "checked": checked})
         if bad:
             raise AssertionError("distributed: " + "; ".join(bad[:20]))
+
+    # -- phase 11: the mesh layer and the dry-run ----------------------------------
+
+    def phase_dryrun(self) -> None:
+        """(a) in subprocesses while (b) and (c) run here: the dry-run CLI
+        for one cell of every arch; (b) calibration cells; (c) a sharded
+        decode on gloo ranks sharing the card."""
+        procs = self.dryrun_start()
+        parts = [self.dryrun_dispatch_cost, self.dryrun_sharded]
+        parts += [lambda cell=cell: self.dryrun_calibrate(*cell)
+                  for cell in DRYRUN_CALIBRATION]
+        parts += [lambda: self.dryrun_finish(procs)]
+        failed = []
+        for part in parts:  # every part runs; any failure fails the phase
+            try:
+                part()
+            except Exception:
+                traceback.print_exc()
+                failed.append(traceback.format_exc(limit=1).splitlines()[-1])
+        if failed:
+            raise AssertionError(f"dryrun: {failed}")
+
+    def dryrun_start(self) -> list:
+        """Start ``python -m repro_torch.launch.dryrun`` for every cell of
+        DRYRUN_CELLS, DRYRUN_WORKERS at a time (fake CUDA tensors: CPU only;
+        the queue is drained by :meth:`dryrun_finish`)."""
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+               "OMP_NUM_THREADS": "1"}
+        self.dryrun_out = Path(tempfile.mkdtemp(prefix="dryrun_torch_"))
+        cmds = [[sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 arch, "--shape", shape, "--multi-pod" if multi else
+                 "--single-pod", "--force", "--out", str(self.dryrun_out)]
+                for arch, shape, multi in DRYRUN_CELLS]
+        log(f"phase dryrun: (a) {len(cmds)} cells of repro_torch.launch.dryrun "
+            f"({DRYRUN_WORKERS} subprocesses at a time, fake CUDA tensors on "
+            f"'fake' groups of 256 and 512 ranks) while (b) and (c) run")
+        self.dryrun_queue = list(reversed(cmds))
+        self.dryrun_t0 = time.perf_counter()
+        return [self.dryrun_next(env) for _ in range(DRYRUN_WORKERS)]
+
+    def dryrun_next(self, env):
+        if not self.dryrun_queue:
+            return None
+        cmd = self.dryrun_queue.pop()
+        return (cmd, time.perf_counter(), subprocess.Popen(
+            cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+
+    def dryrun_finish(self, procs) -> None:
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+               "OMP_NUM_THREADS": "1"}
+        bad = []
+        while any(procs):
+            for i, item in enumerate(procs):
+                if item is None:
+                    continue
+                cmd, t0, proc = item
+                try:
+                    text, _ = proc.communicate(timeout=600)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    text, _ = proc.communicate()
+                    bad.append(f"{cmd[4]} {cmd[6]}: timed out")
+                if proc.returncode:
+                    bad.append(f"{cmd[4]} {cmd[6]} {cmd[7]}: exit {proc.returncode}:"
+                               f" {text[-1500:]}")
+                procs[i] = self.dryrun_next(env)
+        wall = time.perf_counter() - self.dryrun_t0
+        for f in sorted(self.dryrun_out.glob("*.json")):
+            rec = json.loads(f.read_text())
+            if rec["status"] == "ok":
+                log(f"  dryrun {f.stem}: ok trace_s {rec['trace_s']} args "
+                    f"{rec['memory']['argument_size_in_bytes']} temp "
+                    f"{rec['memory']['temp_size_in_bytes']} flops "
+                    f"{rec['cost']['flops']:.6g} collectives "
+                    f"{rec['collectives']['per_op_bytes']} repairs {rec['repairs']}")
+            else:
+                log(f"  dryrun {f.stem}: {rec['status']} "
+                    f"{rec.get('reason') or rec.get('error')}")
+                if rec["status"] != "skipped":
+                    bad.append(f"{f.stem}: {rec.get('error')}\n{rec.get('trace', '')}")
+        log(f"  dryrun (a): {len(DRYRUN_CELLS)} cells in {wall:.1f} s wall")
+        if bad or len(list(self.dryrun_out.glob("*.json"))) != len(DRYRUN_CELLS):
+            raise AssertionError(f"dryrun (a): {bad}")
+
+    def dryrun_dispatch_cost(self) -> None:
+        """The dispatcher's cost of the grouped launch's custom op: host
+        time a call, direct (how real CUDA tensors call it) and through
+        ``torch.ops.repro_torch.merge_kway_groups`` (fake tensors and
+        DTensors), at a decode top-k shape."""
+        torch, km = self.torch, self.km
+        keys = self.sorted_keys("float32", (1216, 4, 32))
+        vals = torch.arange(keys.numel(), dtype=torch.int32,
+                            device=self.dev).reshape(keys.shape)
+        us = {}
+        for name, fn in (("direct", lambda: km.merge_kway_tile_groups(keys, vals)),
+                         ("custom op", lambda: torch.ops.repro_torch.merge_kway_groups(
+                             keys, vals))):
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(2000):
+                fn()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            us[name] = ((t1 - t0) / 2000 * 1e6, (time.perf_counter() - t0) / 2000 * 1e6)
+        got = torch.ops.repro_torch.merge_kway_groups(keys, vals)
+        want = km.merge_kway_groups_plain(keys, vals)
+        mm = self.mismatch(got[0], want[0])[0] + self.mismatch(got[1], want[1])[0]
+        log("  dryrun dispatcher: merge_kway_groups (1216, 4, 32) float32+int32 "
+            + ", ".join(f"{k} {h:.2f} us host / {w:.2f} us wall a call"
+                        for k, (h, w) in us.items())
+            + f"; the op's result against the plain version: {mm} mismatches")
+        if mm:
+            raise AssertionError(f"dryrun dispatcher: {mm} mismatches")
+
+    def dryrun_calibrate(self, arch, kind, seq, batch, over) -> None:
+        """(b) The dry-run of one cell on a mesh of one (a ``"fake"`` group
+        of 1, fake CUDA tensors), then the same step for real on the card,
+        on a mesh of one of an NCCL group of one rank: equal argument bytes
+        and dot FLOPs, and the predicted peak within
+        DRYRUN_PEAK_TOLERANCE of ``max_memory_allocated``."""
+        import datetime
+        import gc
+        import socket
+
+        import torch.distributed as dist
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        from repro_torch.configs.base import ShapeConfig
+        from repro_torch.kernels.merge import register_dtensor_rules
+        from repro_torch.launch import dryrun as D
+        from repro_torch.launch.hlo_stats import TraceStats
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.launch.sharding import Partitioner
+        from repro_torch.models import layers as L
+
+        torch = self.torch
+        shape = ShapeConfig(f"{kind}_calibration", seq, batch, kind)
+        D.SHAPES[shape.name] = shape
+        D.fake_process_group(1)
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"))
+            fake = FakeTensorMode()
+            _, cfg, fn, args = D.build_cell(arch, shape.name, False, over,
+                                            device="cuda", fake_mode=fake, mesh=mesh)
+            pred_args = D.local_bytes(args)
+            stats, part, peak, trace_s = D.trace_cell(mesh, fn, args, fake,
+                                                      by_op=True)
+        finally:
+            L.set_batch_axes(None)
+            dist.destroy_process_group()
+        del args
+        gc.collect()
+        torch.cuda.empty_cache()
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                                rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=300))
+        try:
+            register_dtensor_rules()
+            mesh = make_mesh((1, 1), ("data", "model"))
+            real = D.place_cell(cfg, shape, mesh,
+                                D.real_inputs(cfg, shape, device=self.dev, seed=0))
+            real_args = D.local_bytes(real)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            counted = TraceStats(by_op=True)
+            self.reset()
+            t0 = time.perf_counter()
+            with counted, Partitioner(counted):
+                fn(*real)
+            torch.cuda.synchronize()
+            real_s = time.perf_counter() - t0
+            launched = self.read_launches()
+            real_peak = torch.cuda.max_memory_allocated()
+            if cfg.moe:  # every grouped launch of the step against the plain one
+                def again():
+                    with Partitioner():
+                        fn(*real)
+                self.record_grouped(again, lambda g, kk, w: (
+                    f"dryrun {arch} decode step ({g},{kk},{w})"))
+        finally:
+            L.set_batch_axes(None)
+            dist.destroy_process_group()
+        pred_peak = max(peak, pred_args)
+        line = (f"  dryrun calibrate {arch} {kind} (batch {batch}, seq {seq}"
+                f"{', ' + str(over) if over else ''}): arguments predicted "
+                f"{pred_args} real {real_args}; dot FLOPs predicted {stats.flops} "
+                f"counted on the real step {counted.flops}")
+        bad = []
+        if pred_args != real_args:
+            bad.append("arguments differ")
+        if stats.flops != counted.flops or not stats.flops:
+            bad.append("FLOPs differ")
+            diff = {k: stats.by_op.get(k, 0) - counted.by_op.get(k, 0)
+                    for k in set(stats.by_op) | set(counted.by_op)}
+            top = sorted(diff.items(), key=lambda kv: -abs(kv[1]))[:8]
+            line += "; products that differ (predicted - counted): " + "; ".join(
+                f"{k}: {v:+d}" for k, v in top if v)
+        if kind == "train":
+            formula = self.train_step_flops(cfg)
+            line += f", train_step_flops {formula:.6g} (ratio {stats.flops / formula:.4f})"
+            if abs(stats.flops / formula - 1) > DRYRUN_FLOPS_TOLERANCE:
+                bad.append("FLOPs off the formula")
+        ratio = pred_peak / real_peak
+        line += (f"; peak predicted {pred_peak} real {real_peak} "
+                 f"(max_memory_allocated; ratio {ratio:.4f}); trace {trace_s:.1f} s, "
+                 f"real step {real_s:.2f} s; repairs {part.repairs}; "
+                 f"launches {launched}")
+        log(line)
+        if abs(ratio - 1) > DRYRUN_PEAK_TOLERANCE:
+            bad.append("peak off")
+        if cfg.moe and launched["merge_kway_tile_groups"] == 0:
+            bad.append("no grouped launch")
+        del real
+        gc.collect()
+        torch.cuda.empty_cache()
+        if bad:
+            raise AssertionError(f"dryrun calibrate {arch} {kind}: {bad}")
+
+    def dryrun_sharded(self) -> None:
+        """(c) One decode step of DRYRUN_SHARDED on a (2, 2) mesh of 4 gloo
+        ranks sharing the card, against one process and the fake group's
+        prediction; a checkpoint saved on (2, 2), restored on (4, 1)."""
+        import multiprocessing
+        import socket
+
+        arch, seq, batch = DRYRUN_SHARDED
+        log(f"  dryrun (c): {arch} decode (batch {batch}, seq {seq}) on a (2, 2) "
+            f"('data', 'model') mesh of {DIST_RANKS} gloo ranks sharing cuda:0")
+        fake = subprocess.run(
+            [sys.executable, "-c", DRYRUN_FAKE_SCRIPT, arch, str(seq), str(batch)],
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, cwd=ROOT,
+            capture_output=True, text=True, timeout=600)
+        if fake.returncode:
+            raise AssertionError(f"dryrun (c) fake group: {fake.stdout[-2000:]}"
+                                 f"{fake.stderr[-3000:]}")
+        predicted = json.loads(fake.stdout.strip().splitlines()[-1])
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        ckpt = tempfile.mkdtemp(prefix="dryrun_ckpt_")
+        ctx = multiprocessing.get_context("spawn")
+        queue = ctx.Queue()
+        procs = [ctx.Process(target=dryrun_rank,
+                             args=(r, DIST_RANKS, port, ckpt, queue))
+                 for r in range(DIST_RANKS)]
+        for proc in procs:
+            proc.start()
+        reports, deadline = {}, time.monotonic() + DIST_TIMEOUT_S
+        try:
+            while len(reports) < DIST_RANKS and time.monotonic() < deadline:
+                try:
+                    rep = queue.get(timeout=5)
+                except Exception:  # queue.Empty: see whether a rank died
+                    if any(proc.exitcode not in (None, 0) for proc in procs):
+                        break
+                    continue
+                reports[rep["rank"]] = rep
+        finally:
+            for proc in procs:
+                proc.join(timeout=30)
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join()
+        errors = {r: rep["error"] for r, rep in reports.items() if "error" in rep}
+        for r, text in errors.items():
+            log(f"  rank {r} failed:\n{text}")
+        if len(reports) < DIST_RANKS or errors:
+            raise AssertionError(f"dryrun (c): reports from {sorted(reports)}")
+        reps = [reports[r] for r in range(DIST_RANKS)]
+        log(f"  dryrun (c) gloo with CUDA tensors: {reps[0]['probe']}")
+        bad = []
+        for key in ("flops", "collectives"):
+            got = [rep[key] for rep in reps]
+            log(f"  dryrun (c) {key}: per rank {got}; fake group's prediction "
+                f"{predicted[key]}")
+            if any(g != predicted[key] for g in got):
+                bad.append(f"{key} differ from the prediction")
+        for key in ("logits_rel_l2", "restored_4x1_differ", "restored_whole_differ",
+                    "seconds"):
+            log(f"  dryrun (c) {key}: {[rep[key] for rep in reps]}")
+        if any(rep["logits_rel_l2"] > DRYRUN_LOGITS_L2 for rep in reps):
+            bad.append("logits off one process's")
+        if any(rep["restored_4x1_differ"] or rep["restored_whole_differ"]
+               for rep in reps):
+            bad.append("restored checkpoint differs")
+        if bad:
+            raise AssertionError(f"dryrun (c): {bad}")
 
     def nccl_world_one(self) -> None:
         """(g) One ``sharded_merge_kway`` and one ``dropless_moe_ffn``
@@ -2387,6 +2731,162 @@ def distributed_rank(rank: int, world: int, port: int, cut: int, queue) -> None:
         raise
 
 
+DRYRUN_FAKE_SCRIPT = r"""
+import json, sys
+from torch._subclasses.fake_tensor import FakeTensorMode
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.mesh import make_mesh
+
+arch, seq, batch = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+D.SHAPES["decode_sharded"] = ShapeConfig("decode_sharded", seq, batch, "decode")
+D.fake_process_group(4)
+mesh = make_mesh((2, 2), ("data", "model"))
+fake = FakeTensorMode()
+m, cfg, fn, args = D.build_cell(arch, "decode_sharded", False, device="cuda",
+                                fake_mode=fake, mesh=mesh)
+stats, part, peak, secs = D.trace_cell(m, fn, args, fake)
+print(json.dumps({"flops": stats.flops, "collectives": stats.collective_bytes(),
+                  "trace_s": secs}))
+"""
+
+
+def dryrun_rank(rank: int, world: int, port: int, ckpt: str, queue) -> None:
+    """Entry of a rank process of the dryrun phase's part (c)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                                rank=rank, world_size=world,
+                                timeout=datetime.timedelta(seconds=300))
+        try:
+            queue.put(_dryrun_rank_run(rank, torch, dist, ckpt))
+        finally:
+            dist.destroy_process_group()
+    except Exception:
+        queue.put({"rank": rank, "error": traceback.format_exc()})
+        raise
+
+
+def _gloo_cuda_collectives(torch, dist):
+    """A dispatch mode that runs DTensor's functional ``all_gather`` and
+    ``all_reduce`` on gloo as the blocking ``torch.distributed`` calls: on
+    CUDA tensors gloo takes ``dist.all_gather_into_tensor`` and
+    ``dist.all_reduce``, but the functional ``all_gather_tensor`` crashes
+    the process (signal 11 on torch 2.11).  The counters
+    below it count the same bytes either way."""
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    funcol = torch.ops._c10d_functional
+
+    class GlooCudaCollectives(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func is funcol.all_gather_into_tensor.default:
+                x, n, name = args
+                out = x.new_empty((n * x.shape[0], *x.shape[1:]))
+                dist.all_gather_into_tensor(out, x.contiguous(),
+                                            group=_resolve_process_group(name))
+                return out
+            if func is funcol.all_reduce.default:
+                x, op, name = args
+                out = x.clone()
+                dist.all_reduce(out, op=getattr(dist.ReduceOp, op.upper()),
+                                group=_resolve_process_group(name))
+                return out
+            return func(*args, **(kwargs or {}))
+
+    return GlooCudaCollectives()
+
+
+def _dryrun_rank_run(rank, torch, dist, ckpt) -> dict:
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.checkpoint import checkpointer as C
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.kernels.merge import register_dtensor_rules
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.hlo_stats import TraceStats
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharding import Partitioner
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    probe = {}
+    x = torch.full((4,), float(rank), device=dev)
+    for name, fn in (
+            ("all_gather_into_tensor", lambda: dist.all_gather_into_tensor(
+                torch.empty(16, device=dev), x)),
+            ("reduce_scatter_tensor", lambda: dist.reduce_scatter_tensor(
+                torch.empty(1, device=dev), x))):
+        try:
+            fn()
+            torch.cuda.synchronize()
+            probe[name] = "ok"
+        except (RuntimeError, ValueError) as e:
+            probe[name] = f"{type(e).__name__}: {str(e)[:120]}"
+    register_dtensor_rules()
+    arch, seq, batch = DRYRUN_SHARDED
+    shape = ShapeConfig("decode_sharded", seq, batch, "decode")
+    mesh = make_mesh((2, 2), ("data", "model"))
+    out = {"rank": rank, "probe": probe}
+
+    gloo_fix = _gloo_cuda_collectives(torch, dist)
+
+    def sharded(cfg, inputs, stats):
+        args = D.place_cell(cfg, shape, mesh, inputs)
+        try:
+            with stats, gloo_fix, Partitioner(stats):
+                logits, _ = D.step_fn(cfg, "decode")(*args)
+            with gloo_fix:  # gathered for the check, not counted
+                full = logits.full_tensor()
+        finally:
+            L.set_batch_axes(None)
+        return full, args[0]
+
+    # the cell as the dry-run sees it (bf16 compute and cache): the counts
+    cfg = ARCHS[arch]
+    stats = TraceStats()
+    sharded(cfg, D.real_inputs(cfg, shape, device=dev, seed=0), stats)
+    out["flops"], out["collectives"] = stats.flops, stats.collective_bytes()
+    # float32 compute and cache: the logits against one process
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+
+    def inputs32():
+        return D.real_inputs(cfg32, shape, device=dev, seed=0,
+                             cache_dtype=torch.float32)
+
+    got, dparams = sharded(cfg32, inputs32(), TraceStats())
+    params, cache, tokens = inputs32()
+    want, _ = D.step_fn(cfg32, "decode")(params, cache, tokens)
+    out["logits_rel_l2"] = float(torch.linalg.norm(got - want)
+                                 / torch.linalg.norm(want))
+    # a checkpoint of the sharded params, restored on (4, 1) and whole
+    specs = D.sanitize_specs(params, T.param_specs(cfg32), mesh)
+    with gloo_fix:
+        C.save_checkpoint(ckpt, 1, {"params": dparams}, specs={"params": specs})
+        mesh41 = make_mesh((4, 1), ("data", "model"))
+        back = C.restore_checkpoint(ckpt, 1, {"params": params}, mesh=mesh41)
+        whole = C.restore_checkpoint(ckpt, 1, {"params": T._map(torch.zeros_like,
+                                                                params)})
+        differ = [0, 0]
+        for a, b, c in zip(tree_leaves(params), tree_leaves(back["params"]),
+                           tree_leaves(whole["params"])):
+            bits = a.view(torch.int32) if a.dtype == torch.float32 else a
+            differ[0] += int((bits != b.full_tensor().view(bits.dtype)).sum())
+            differ[1] += int((bits != c.view(bits.dtype)).sum())
+    out["restored_4x1_differ"], out["restored_whole_differ"] = differ
+    out["seconds"] = round(time.perf_counter() - t0, 1)
+    return out
+
+
 class backend_env:
     """Set the port's merge backend variable for a block, then restore it."""
 
@@ -2459,6 +2959,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--quick", action="store_true",
                         help="divide every phase's element count by 64")
+    parser.add_argument("--only", default="",
+                        help="comma-separated phases to run after the build "
+                             "(e.g. 'dryrun'); the default runs them all")
     args = parser.parse_args()
 
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -2482,10 +2985,14 @@ def main() -> int:
 
     smoke = Smoke(torch, args.quick)
     t_start = time.perf_counter()
-    for phase in (smoke.phase_build, smoke.phase_merge, smoke.phase_merge_kway,
-                  smoke.phase_merge_window, smoke.phase_external,
-                  smoke.phase_serve, smoke.phase_moe, smoke.phase_ssm,
-                  smoke.phase_train, smoke.phase_distributed):
+    phases = (smoke.phase_build, smoke.phase_merge, smoke.phase_merge_kway,
+              smoke.phase_merge_window, smoke.phase_external,
+              smoke.phase_serve, smoke.phase_moe, smoke.phase_ssm,
+              smoke.phase_train, smoke.phase_distributed, smoke.phase_dryrun)
+    if args.only:
+        keep = {f"phase_{name}" for name in args.only.split(",")} | {"phase_build"}
+        phases = [ph for ph in phases if ph.__name__ in keep]
+    for phase in phases:
         t0 = time.perf_counter()
         try:
             phase()
@@ -2495,7 +3002,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         log(f"  ({phase.__name__} took {time.perf_counter() - t0:.1f} s)")
     for name, n in smoke.launches.items():
-        if n == 0:
+        if n == 0 and not args.only:
             smoke.failed.append(f"{name} never launched")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if smoke.failed:

@@ -82,7 +82,8 @@ def window_rows(x: torch.Tensor, lo, hi, s: int) -> torch.Tensor:
 
 
 def balanced_exchange(send: torch.Tensor, lengths: torch.Tensor | None = None,
-                      group=None, *, fill=0):
+                      group=None, *, fill=0, constrain=None, in_spec=None,
+                      out_spec=None):
     """Ragged balanced ``all_to_all``: slots + an exact lengths sideband.
 
     ``send`` is a ``(p, capacity, ...)`` slot buffer, row ``d``
@@ -96,17 +97,25 @@ def balanced_exchange(send: torch.Tensor, lengths: torch.Tensor | None = None,
 
     ``lengths=None`` is the static-shape special case: every slot travels
     whole, no sideband, ``recv_lengths`` is ``None`` (``slot_transpose``).
-    ``group=None`` is the single-process form of that case: the swap of
-    the two leading (peer, slot) axes.  The reference's GSPMD sharding
-    constraints on that form (``constrain``, ``in_spec``, ``out_spec``)
-    have no counterpart yet.
+    ``group=None`` is the form without explicit collectives: the swap of
+    the two leading (peer, slot) axes, under the sharding constraints
+    ``constrain(x, *spec)`` of ``in_spec`` before it and ``out_spec``
+    after it (``models.layers.constrain_spec``, as the reference passes
+    it).  On DTensors sharded with groups on the batch axes and experts on
+    ``model``, the constraints make the swap one redistribution of equal
+    bytes per peer; without a mesh they change nothing.
     """
     if group is None:
         if lengths is not None:
             raise ValueError(
                 "balanced_exchange: the ragged form (lengths sideband) "
                 "needs a process group")
-        return send.transpose(0, 1), None
+        if constrain is not None and in_spec is not None:
+            send = constrain(send, *in_spec)
+        recv = send.transpose(0, 1)
+        if constrain is not None and out_spec is not None:
+            recv = constrain(recv, *out_spec)
+        return recv, None
     if lengths is None:
         return C.all_to_all(send, group), None
     lengths = lengths.to(torch.int32)
@@ -169,9 +178,15 @@ def exchange_block(run_shard: torch.Tensor, cuts: torch.Tensor, group,
     return segments, lengths
 
 
-def slot_transpose(x: torch.Tensor) -> torch.Tensor:
+def slot_transpose(x: torch.Tensor, constrain=None, in_spec=None,
+                   out_spec=None) -> torch.Tensor:
     """Swap the two leading (peer-group, slot) axes of a capacity-padded
-    dispatch buffer: the single-process form of the balanced exchange
-    (MoE capacity dispatch over local groups)."""
-    recv, _ = balanced_exchange(x)
+    dispatch buffer: the form of the balanced exchange without explicit
+    collectives (MoE capacity dispatch over local groups).  ``constrain``
+    is a ``(x, *spec) -> x`` sharding constraint
+    (``repro_torch.models.layers.constrain_spec``), ``in_spec`` /
+    ``out_spec`` the spec entries before / after the swap; ``None`` skips
+    them."""
+    recv, _ = balanced_exchange(x, constrain=constrain, in_spec=in_spec,
+                                out_spec=out_spec)
     return recv

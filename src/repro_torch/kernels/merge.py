@@ -23,6 +23,17 @@ and :func:`merge_kway_tiled` run both phases, the counterparts of
 A wrapper takes its plain version only when every tensor it is given lies
 on the CPU (the tests).  For CUDA tensors it launches the kernel on the
 current stream, or raises; it never falls back.
+
+Each entry point is also a ``torch.library`` custom op
+(``repro_torch::merge_tile``, ``::merge_kway_tile``,
+``::merge_kway_groups``) whose fake implementation gives the kernel's
+output shapes and dtypes, so a fake trace (the dry-run) runs through it,
+and :func:`register_dtensor_rules` gives DTensor its sharding: groups are
+independent, so the grouped launch may shard its group axis; the other
+two replicate.  Real CUDA tensors call the kernel directly (the
+dispatcher's own cost per call stays off the host-bound decode path);
+fake tensors, DTensors and CPU tensors go through the op, whose body is
+the same wrapper code.
 """
 
 from __future__ import annotations
@@ -48,6 +59,7 @@ __all__ = [
     "merge_kway_tile_groups",
     "merge_kway_groups_plain",
     "tile_bounds",
+    "register_dtensor_rules",
     "MERGE_TILE",
     "KWAY_TILE",
     "KWAY_MAX_RUNS",
@@ -161,6 +173,14 @@ def merge_tile_plain(a, b, jb, kb, *, tile: int = MERGE_TILE) -> torch.Tensor:
     return out
 
 
+def _direct(*tensors) -> bool:
+    """Real CUDA tensors (plain ``torch.Tensor``: neither fake nor a
+    DTensor) call the kernel without the dispatcher; the rest go through
+    the custom op."""
+    return all(t is None or (type(t) is torch.Tensor and t.is_cuda)
+               for t in tensors)
+
+
 def merge_tile(a, b, jb, kb):
     """Merge the output tiles ``[r*MERGE_TILE, min((r+1)*MERGE_TILE, m+n))``
     of the stable merge of sorted ``a`` and ``b`` in one launch.
@@ -170,6 +190,24 @@ def merge_tile(a, b, jb, kb):
     (int32, int64, float32, float64, float16 or bfloat16).  Returns the
     merged ``(m+n,)`` tensor.
     """
+    _on_cpu(a, b, jb, kb)  # devices are checked before the op's dispatch
+    if _direct(a, b, jb, kb):
+        return _merge_tile_impl(a, b, jb, kb)
+    return torch.ops.repro_torch.merge_tile(a, b, jb, kb)
+
+
+@torch.library.custom_op("repro_torch::merge_tile", mutates_args=())
+def _merge_tile_op(a: torch.Tensor, b: torch.Tensor, jb: torch.Tensor,
+                   kb: torch.Tensor) -> torch.Tensor:
+    return _merge_tile_impl(a, b, jb, kb)
+
+
+@_merge_tile_op.register_fake
+def _(a, b, jb, kb):
+    return a.new_empty((a.shape[0] + b.shape[0],))
+
+
+def _merge_tile_impl(a, b, jb, kb):
     op = "merge_tile"
     on_cpu = _on_cpu(a, b, jb, kb)
     _check(a.dtype == b.dtype and a.dtype in _MERGE_DTYPES, op,
@@ -320,6 +358,30 @@ def merge_kway_tile(runs, cb, *, vals=None, out_len: int):
     1, clamped at the real run lengths).  Returns ``(out_len,)`` keys (and
     payload); positions past the real total are unspecified.
     """
+    _on_cpu(runs, cb, vals)
+    if _direct(runs, cb, vals):
+        return _merge_kway_tile_impl(runs, cb, vals=vals, out_len=out_len)
+    out_k, out_v = torch.ops.repro_torch.merge_kway_tile(runs, cb, vals,
+                                                         out_len)
+    return out_k if vals is None else (out_k, out_v)
+
+
+@torch.library.custom_op("repro_torch::merge_kway_tile", mutates_args=())
+def _merge_kway_tile_op(runs: torch.Tensor, cb: torch.Tensor,
+                        vals: torch.Tensor | None,
+                        out_len: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Both outputs always: the payload is empty without ``vals``."""
+    out = _merge_kway_tile_impl(runs, cb, vals=vals, out_len=out_len)
+    return (out, runs.new_empty((0,))) if vals is None else out
+
+
+@_merge_kway_tile_op.register_fake
+def _(runs, cb, vals, out_len):
+    return (runs.new_empty((out_len,)),
+            runs.new_empty((0,)) if vals is None else vals.new_empty((out_len,)))
+
+
+def _merge_kway_tile_impl(runs, cb, *, vals=None, out_len: int):
     op = "merge_kway_tile"
     on_cpu = _on_cpu(runs, cb, vals)
     _check(runs.dim() == 2, op, f"runs must be (k, w), got {tuple(runs.shape)}")
@@ -406,6 +468,30 @@ def merge_kway_tile_groups(keys, vals=None):
     tile (``k*w <= KWAY_TILE``), so its cuts are trivial and there is no
     phase 1; each CUDA block packs ``KWAY_TILE // (k*w)`` whole groups.
     """
+    _on_cpu(keys, vals)
+    if _direct(keys, vals):
+        return _merge_kway_groups_impl(keys, vals)
+    out_k, out_v = torch.ops.repro_torch.merge_kway_groups(keys, vals)
+    return out_k, (None if vals is None else out_v)
+
+
+@torch.library.custom_op("repro_torch::merge_kway_groups", mutates_args=())
+def _merge_kway_groups_op(
+        keys: torch.Tensor,
+        vals: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Both outputs always: the payload is empty without ``vals``."""
+    out_k, out_v = _merge_kway_groups_impl(keys, vals)
+    return out_k, keys.new_empty((0,)) if out_v is None else out_v
+
+
+@_merge_kway_groups_op.register_fake
+def _(keys, vals):
+    g, k, w = keys.shape
+    return (keys.new_empty((g, k * w)),
+            keys.new_empty((0,)) if vals is None else vals.new_empty((g, k * w)))
+
+
+def _merge_kway_groups_impl(keys, vals=None):
     op = "merge_kway_tile_groups"
     on_cpu = _on_cpu(keys, vals)
     _check(keys.dim() == 3, op, f"keys must be (g, k, w), got {tuple(keys.shape)}")
@@ -440,3 +526,40 @@ def merge_kway_tile_groups(keys, vals=None):
 
 
 merge_kway_tile_groups.launches = 0
+
+
+@functools.cache
+def register_dtensor_rules() -> None:
+    """DTensor shardings of the three ops: ``merge_kway_groups`` takes its
+    groups (dim 0) sharded or replicated, payload alike; ``merge_tile``
+    and ``merge_kway_tile`` cut along co-ranks that span the whole input,
+    so they replicate.  Also ``aten.detach_`` (placements kept) where the
+    installed DTensor lacks it."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    detach_ = torch.ops.aten.detach_.default
+    if detach_ not in DTensor._op_dispatcher.sharding_propagator.op_strategy_funcs:
+        # some torch releases have none, and autograd calls it on DTensors
+        @register_sharding(detach_)
+        def _detach(x):
+            return [([p], [p]) for p in
+                    [Replicate(), Partial(), *map(Shard, range(x.ndim))]]
+
+    @register_sharding(torch.ops.repro_torch.merge_kway_groups.default)
+    def _groups(keys, vals):
+        pv = None if vals is None else Replicate()
+        rules = [([Replicate(), Replicate()], [Replicate(), pv])]
+        sv = None if vals is None else Shard(0)
+        rules.append(([Shard(0), Shard(0) if vals is not None else Replicate()],
+                      [Shard(0), sv]))
+        return rules
+
+    @register_sharding(torch.ops.repro_torch.merge_tile.default)
+    def _tile(a, b, jb, kb):
+        return [([Replicate()], [Replicate()] * 4)]
+
+    @register_sharding(torch.ops.repro_torch.merge_kway_tile.default)
+    def _kway(runs, cb, vals, out_len):
+        pv = None if vals is None else Replicate()
+        return [([Replicate(), Replicate()], [Replicate(), Replicate(), pv, None])]

@@ -21,14 +21,18 @@ import math
 import torch
 
 from repro_torch.models.layers import (
+    P,
     apply_rope,
     init_rmsnorm,
+    is_dtensor,
     rmsnorm,
+    rmsnorm_specs,
     truncated_normal,
 )
 
 __all__ = [
     "init_gqa",
+    "gqa_specs",
     "qkv_project",
     "flash_attention",
     "make_flash_attention_vjp",
@@ -65,6 +69,19 @@ def init_gqa(gen, d, n_heads, n_kv, head_dim, qkv_bias=False, qk_norm=False,
     return p
 
 
+def gqa_specs(qkv_bias=False, qk_norm=False):
+    """Logical specs of :func:`init_gqa`'s tree (heads on ``model``, d
+    on ``data``)."""
+    s = {"wq": P("data", "model", None), "wk": P("data", "model", None),
+         "wv": P("data", "model", None), "wo": P("model", None, "data")}
+    if qkv_bias:
+        s.update(bq=P("model", None), bk=P("model", None),
+                 bv=P("model", None))
+    if qk_norm:
+        s.update(q_norm=rmsnorm_specs(), k_norm=rmsnorm_specs())
+    return s
+
+
 def qkv_project(params, x, cos, sin, positions, qk_norm=False):
     """x (b, s, d) -> q (b, s, h, hd), k and v (b, s, n_kv, hd): q and k
     RMS-normalised per head (``qk_norm``), then rotated."""
@@ -83,6 +100,29 @@ def qkv_project(params, x, cos, sin, positions, qk_norm=False):
         q = apply_rope(q, cos, sin, positions)
         k = apply_rope(k, cos, sin, positions)
     return q, k, v
+
+
+def _on_local_heads(fn, q, k, v, **kw):
+    """``fn(q, k, v, **kw)`` for DTensor inputs, run on each rank's local
+    batch rows and query heads: attention is independent per row and per
+    head, so every rank attends its own block, as GSPMD partitions it,
+    and no op of the attention itself goes through DTensor (which cannot
+    flatten a batch dim and a head dim that are both sharded).  q keeps
+    its batch (dim 0) and head (dim 2) shards, everything else is
+    gathered; k and v follow q, their heads repeated for each query
+    head's group when the kv heads do not divide over the head shards
+    (8 kv heads, 32 query heads over a 16-wide ``model`` axis)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = q.device_mesh
+    pl = [p if p in (Shard(0), Shard(2)) else Replicate()
+          for p in q.placements]
+    ways = math.prod(mesh.size(i) for i, p in enumerate(pl) if p == Shard(2))
+    if k.shape[2] % ways:
+        g = q.shape[2] // k.shape[2]
+        k, v = k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
+    q, k, v = (t.redistribute(mesh, pl).to_local() for t in (q, k, v))
+    return DTensor.from_local(fn(q, k, v, **kw), mesh, pl, run_check=False)
 
 
 def _chunk_layout(q, k, v, q_chunk, kv_chunk):
@@ -153,10 +193,15 @@ def flash_attention(q, k, v, *, causal: bool = True, q_chunk: int = 1024,
     q: (b, sq, h, hd); k: (b, skv, n_kv, hd); v: (b, skv, n_kv, hdv).
     Returns (b, sq, h, hdv) in ``q``'s dtype.  ``causal_skip`` (with
     ``causal`` and more than one query chunk) runs each query chunk only
-    over the KV chunks that reach its last position.  Autograd
+    over the KV chunks that reach its last position.  DTensor inputs
+    attend on each rank's rows and heads (:func:`_on_local_heads`).  Autograd
     differentiates the loops as they are; :func:`make_flash_attention_vjp`
     is the form that recomputes the probabilities instead.
     """
+    if is_dtensor(q):
+        return _on_local_heads(flash_attention, q, k, v, causal=causal,
+                               q_chunk=q_chunk, kv_chunk=kv_chunk,
+                               causal_skip=causal_skip)
     q_chunk = min(q_chunk, q.shape[1])
     kv_chunk = min(kv_chunk, k.shape[1])
     (b, nq, nkv, _, _, _, hdv), qr, kr, vr = _chunk_layout(
@@ -255,6 +300,8 @@ def make_flash_attention_vjp(*, causal: bool, q_chunk: int, kv_chunk: int):
     probabilities saved): a function ``(q, k, v) -> out``."""
 
     def fa(q, k, v):
+        if is_dtensor(q):
+            return _on_local_heads(fa, q, k, v)
         return _FlashAttention.apply(q, k, v, causal, q_chunk, kv_chunk)
 
     return fa

@@ -3,8 +3,17 @@
 Plain functions on nested dicts of tensors, as the reference's params
 pytrees: the carry-over from the reference (``models.convert``) is then a
 leaf-for-leaf copy.  Each ``init_*`` takes an explicit
-``torch.Generator`` and a required ``device`` keyword and returns the params alone (the
-reference also returns sharding specs, which the port has no use for).
+``torch.Generator`` and a required ``device`` keyword and returns the
+params alone; the reference's second return value, the tree of logical
+:class:`PartitionSpec` entries, comes from the matching ``*_specs`` function
+(``transformer.param_specs`` assembles them).  TP shards the "wide" axis
+on ``model``, FSDP shards the d_model axis on ``data``; ``pod`` is pure
+data parallelism.
+
+The activation constraints (``set_batch_axes``, ``constrain_batch_leading``,
+``constrain_spec``) are no-ops until a launcher sets the batch axes, as in
+the reference; then they redistribute a DTensor to the spec's placements
+on its own mesh, and leave a plain tensor as it is.
 """
 
 from __future__ import annotations
@@ -15,6 +24,17 @@ import torch
 import torch.nn.functional as F
 
 __all__ = [
+    "PartitionSpec",
+    "P",
+    "spec_placements",
+    "is_dtensor",
+    "set_batch_axes",
+    "get_batch_axes",
+    "constrain_batch_leading",
+    "constrain_spec",
+    "rmsnorm_specs",
+    "embedding_specs",
+    "mlp_specs",
     "truncated_normal",
     "init_rmsnorm",
     "rmsnorm",
@@ -27,6 +47,124 @@ __all__ = [
     "apply_rope",
     "sinusoidal_positions",
 ]
+
+
+class PartitionSpec(tuple):
+    """Logical sharding of one tensor: per dimension a mesh axis name, a
+    tuple of names (several mesh axes on one dimension, major first), or
+    ``None`` (not sharded); missing trailing entries are ``None``.  The
+    port's stand-in for ``jax.sharding.PartitionSpec``, whose entries it
+    normalises alike: a one-name tuple is the name, an empty one ``None``."""
+
+    def __new__(cls, *entries):
+        def norm(e):
+            if isinstance(e, (tuple, list)):
+                return None if not e else (e[0] if len(e) == 1 else tuple(e))
+            return e
+
+        return super().__new__(cls, tuple(norm(e) for e in entries))
+
+    def __getnewargs__(self):
+        return tuple(self)
+
+    def __repr__(self):
+        return "P(" + ", ".join(map(repr, self)) + ")"
+
+
+P = PartitionSpec
+
+
+def spec_placements(spec, mesh) -> list:
+    """DTensor placements of ``spec`` on ``mesh``: ``Shard(dim)`` on every
+    mesh dimension that a tensor dimension names, ``Replicate()`` on the
+    rest; axis names the mesh lacks are dropped.  Several mesh axes on one
+    tensor dimension shard it in mesh order (the spec's order on the
+    production meshes)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = mesh.mesh_dim_names
+    out = [Replicate()] * len(names)
+    for dim, entry in enumerate(spec):
+        axes = entry if isinstance(entry, (tuple, list)) else (entry,)
+        for a in axes:
+            if a is not None and a in names:
+                out[names.index(a)] = Shard(dim)
+    return out
+
+
+def is_dtensor(t) -> bool:
+    """``t`` is a DTensor (a plain tensor is answered without importing
+    ``torch.distributed.tensor``: the check sits on the decode path)."""
+    if type(t) is torch.Tensor or not isinstance(t, torch.Tensor):
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+# Activation batch axes, set by the launcher or dry-run before a step
+# (("pod", "data"), ("data",), or () for batch-1 decode).  None disables
+# the activation constraints (single-process runs).
+_BATCH_AXES: tuple | None = None
+
+
+def set_batch_axes(ba):
+    global _BATCH_AXES
+    _BATCH_AXES = ba
+
+
+def get_batch_axes():
+    return _BATCH_AXES
+
+
+def _redistribute(x, spec):
+    if _BATCH_AXES is None or not is_dtensor(x):
+        return x
+    want = spec_placements(spec, x.device_mesh)
+    if all(not p.is_partial() and p == q for p, q in zip(x.placements, want)):
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
+def constrain_batch_leading(x):
+    """Shard dim 0 over the configured batch axes (residual streams); of
+    those, the leading ones whose product divides dim 0 (a microbatch
+    smaller than the batch ways runs on fewer ranks: DTensor does not pad
+    an uneven shard as GSPMD does)."""
+    if _BATCH_AXES is None or not is_dtensor(x):
+        return x
+    axes, ways = [], 1
+    for a in _BATCH_AXES:
+        if a in x.device_mesh.mesh_dim_names:
+            size = x.device_mesh.size(x.device_mesh.mesh_dim_names.index(a))
+            if x.shape[0] % (ways * size):
+                break
+            axes.append(a)
+            ways *= size
+    return _redistribute(x, P(tuple(axes), *(None,) * (x.dim() - 1)))
+
+
+def constrain_spec(x, *entries):
+    """Explicit activation constraint (a no-op without batch axes or on a
+    plain tensor)."""
+    if _BATCH_AXES is None:
+        return x
+    return _redistribute(x, P(*entries))
+
+
+def rmsnorm_specs():
+    return {"scale": P(None)}
+
+
+def embedding_specs():
+    return {"table": P("model", "data")}  # vocab TP-sharded, d FSDP-sharded
+
+
+def mlp_specs(kind: str = "swiglu"):
+    s = {"w_up": P("data", "model"), "w_down": P("model", "data")}
+    if kind == "swiglu":
+        s["w_gate"] = P("data", "model")
+    return s
 
 
 # Elements drawn in float32 at a time (1 GiB): a full-width leaf is drawn

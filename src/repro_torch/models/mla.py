@@ -15,9 +15,9 @@ import math
 import torch
 
 from repro_torch.models.attention import flash_attention
-from repro_torch.models.layers import apply_rope, rmsnorm, truncated_normal
+from repro_torch.models.layers import P, apply_rope, rmsnorm, truncated_normal
 
-__all__ = ["init_mla", "mla_latents", "mla_attention_train",
+__all__ = ["init_mla", "mla_specs", "mla_latents", "mla_attention_train",
            "mla_attention_decode"]
 
 
@@ -51,6 +51,15 @@ def init_mla(gen, d, n_heads, *, q_lora_rank, kv_lora_rank,
         "wo": draw((n_heads, v_head_dim, d),
                    1.0 / math.sqrt(n_heads * v_head_dim)),
     }
+
+
+def mla_specs():
+    """Logical specs of :func:`init_mla`'s tree."""
+    return {"w_dq": P("data", "model"), "q_norm": P(None),
+            "w_uq": P(None, "model", None), "w_dkv": P("data", None),
+            "kv_norm": P(None), "w_krope": P("data", None),
+            "w_uk": P(None, "model", None), "w_uv": P(None, "model", None),
+            "wo": P("model", None, "data")}
 
 
 def mla_latents(params, x, cos, sin, positions, dims):

@@ -19,7 +19,13 @@ Two dispatch semantics, as in the reference (``moe_apply(dispatch=...)``):
 
 The reference's ``lax.ragged_dot`` becomes a loop over the non-empty
 segments, whose bounds reach the host once per layer: a decode step
-reads only the experts its tokens chose.  Both combines scatter each
+reads only the experts its tokens chose.  A fake trace (the dry-run) has
+no sizes to read and takes the balanced split instead, ``T k / E`` rows
+per expert with the remainder to the first experts: the products' FLOPs
+(``sum_e s_e d ff 2``) and buffer sizes do not depend on the split.  With
+the experts sharded over a mesh (DTensor weights), each rank multiplies
+only its own experts' segments (expert parallelism) and the outputs sum
+over the expert axis.  Both combines scatter each
 assignment's weighted output to its unique index ``token * k + choice``
 and sum over the choice axis -- a fixed order, with no atomics, the order
 of :func:`moe_dense_reference` (the reference's capacity combine adds
@@ -35,14 +41,25 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.core.mergesort import sort_key_val
 from repro_torch.core.topk import merge_topk_batch
 from repro_torch.distributed.exchange import slot_transpose
-from repro_torch.models.layers import init_mlp, mlp, truncated_normal
+from repro_torch.models.layers import (
+    P,
+    constrain_spec,
+    get_batch_axes,
+    init_mlp,
+    is_dtensor,
+    mlp,
+    mlp_specs,
+    truncated_normal,
+)
 
 __all__ = [
     "init_moe",
+    "moe_specs",
     "route_topk",
     "moe_dispatch",
     "moe_dispatch_dropless",
@@ -76,6 +93,16 @@ def init_moe(gen, d: int, ff: int, n_experts: int, n_shared: int = 0,
                                kind="swiglu", device=device, layers=layers,
                                dtype=dtype)
     return p
+
+
+def moe_specs(n_shared: int = 0):
+    """Logical specs of :func:`init_moe`'s tree (experts EP-sharded on
+    ``model``)."""
+    s = {"router": P("data", None), "w_gate": P("model", "data", None),
+         "w_up": P("model", "data", None), "w_down": P("model", None, "data")}
+    if n_shared:
+        s["shared"] = mlp_specs("swiglu")
+    return s
 
 
 def _sort_assignments(experts: torch.Tensor):
@@ -142,11 +169,20 @@ def moe_dispatch_dropless(experts: torch.Tensor, n_experts: int):
     return sorted_e, sorted_idx, bounds[1:] - bounds[:-1]
 
 
-def _segments(group_sizes) -> list[tuple[int, int, int]]:
+def _segments(group_sizes, rows: int) -> list[tuple[int, int, int]]:
     """``(expert, first row, end row)`` of every non-empty group: the
-    sizes reach the host here, once."""
+    sizes reach the host here, once.  Fake sizes (a fake trace) have no
+    values: ``rows`` rows split evenly, the remainder to the first
+    experts."""
+    if is_fake(group_sizes):
+        base, rem = divmod(rows, group_sizes.shape[0])
+        sizes = [base + (e < rem) for e in range(group_sizes.shape[0])]
+    else:
+        if is_dtensor(group_sizes):
+            group_sizes = group_sizes.full_tensor()
+        sizes = torch.as_tensor(group_sizes).tolist()
     out, lo = [], 0
-    for e, n in enumerate(torch.as_tensor(group_sizes).tolist()):
+    for e, n in enumerate(sizes):
         if n:
             out.append((e, lo, lo + n))
         lo += n
@@ -156,10 +192,46 @@ def _segments(group_sizes) -> list[tuple[int, int, int]]:
 def _segment_gemm(x: torch.Tensor, w: torch.Tensor, segments) -> torch.Tensor:
     """One product per segment, concatenated (autograd passes through it),
     then zeros for the rows past the last segment."""
+    if is_dtensor(w):
+        return _segments_ep(x, [w], segments, torch.matmul)
     end = segments[-1][2] if segments else 0
     parts = [x[lo:hi] @ w[e] for e, lo, hi in segments]
     parts.append(x.new_zeros((x.shape[0] - end, w.shape[-1])))
     return torch.cat(parts)
+
+
+def _segments_ep(x, ws, segments, fn):
+    """``fn(x[lo:hi], *(w[e] for w in ws))`` for every segment, with the
+    experts of the DTensor weights ``ws`` sharded over the mesh axes their
+    placements name on dim 0: each rank gathers the rows and runs only its
+    own experts' segments, so the result is a partial sum over those axes
+    (other rows are zeros there)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = ws[0].device_mesh
+    ep = [i for i, p in enumerate(ws[0].placements) if p == Shard(0)]
+    local = [w.redistribute(mesh, [Shard(0) if i in ep else Replicate()
+                                   for i in range(mesh.ndim)]).to_local()
+             for w in ws]
+    xs = x.redistribute(mesh, [Replicate()] * mesh.ndim).to_local() \
+        if isinstance(x, DTensor) else x
+    rank, ways = 0, 1  # this rank's block of experts, major axis first
+    for i in ep:
+        rank = rank * mesh.size(i) + mesh.get_local_rank(i)
+        ways *= mesh.size(i)
+    first = rank * (ws[0].shape[0] // ways)
+    parts, at = [], 0
+    for e, lo, hi in segments:
+        if 0 <= e - first < local[0].shape[0]:
+            y = fn(xs[lo:hi], *(w[e - first] for w in local))
+            parts += [xs.new_zeros((lo - at, y.shape[-1])), y]
+            at = hi
+    width = ws[-1].shape[-1]
+    parts.append(xs.new_zeros((xs.shape[0] - at, width)))
+    return DTensor.from_local(
+        torch.cat(parts), mesh,
+        [Partial() if i in ep else Replicate() for i in range(mesh.ndim)],
+        run_check=False)
 
 
 def grouped_gemm(x: torch.Tensor, w: torch.Tensor, group_sizes):
@@ -167,7 +239,11 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor, group_sizes):
     weights -> ``(m, f)``: row ``i`` of group ``e`` gets ``x[i] @ w[e]``.
     Rows ``[sum(gs[:e]), sum(gs[:e+1]))`` are group ``e``; rows past
     ``sum(gs)`` give zeros.  One product per non-empty group."""
-    return _segment_gemm(x, w, _segments(group_sizes))
+    return _segment_gemm(x, w, _segments(group_sizes, x.shape[0]))
+
+
+def _expert_ffn(x, w_gate, w_up, w_down):
+    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
 
 
 def _dropless_moe(params, xt, w, experts, n_experts, top_k):
@@ -177,11 +253,15 @@ def _dropless_moe(params, xt, w, experts, n_experts, top_k):
     dt = xt.dtype
     _, sorted_idx, group_sizes = moe_dispatch_dropless(experts, n_experts)
     sorted_idx = sorted_idx.long()
-    segments = _segments(group_sizes)
+    segments = _segments(group_sizes, sorted_idx.shape[0])
     xs = xt[sorted_idx // top_k]  # (T*k, d) rows in expert order
-    gate = _segment_gemm(xs, params["w_gate"].to(dt), segments)
-    up = _segment_gemm(xs, params["w_up"].to(dt), segments)
-    ys = _segment_gemm(F.silu(gate) * up, params["w_down"].to(dt), segments)
+    ws = [params[n].to(dt) for n in ("w_gate", "w_up", "w_down")]
+    if is_dtensor(ws[0]):
+        ys = _segments_ep(xs, ws, segments, _expert_ffn)
+    else:
+        gate = _segment_gemm(xs, ws[0], segments)
+        up = _segment_gemm(xs, ws[1], segments)
+        ys = _segment_gemm(F.silu(gate) * up, ws[2], segments)
     token_w = w.reshape(-1)[sorted_idx].to(dt)
     out = xt.new_zeros((t * top_k, d))
     out[sorted_idx] = ys * token_w[:, None]
@@ -262,12 +342,21 @@ def _capacity_moe(params, xt, w, experts, n_experts, top_k, capacity, g):
     ex_in, combine = _dispatch_combine_one_group(
         xt, w, experts + group_of[:, None] * n_experts, g * n_experts, top_k,
         capacity)
-    ex_g = slot_transpose(ex_in.reshape(g, n_experts, capacity, d))
+    # groups on the batch axes, experts on the EP axis: with a mesh, the
+    # swap is the balanced all_to_all (equal bytes per peer)
+    ba = get_batch_axes()
+    constrain = constrain_spec if ba is not None else None
+    ex_g = slot_transpose(ex_in.reshape(g, n_experts, capacity, d),
+                          constrain=constrain, in_spec=(ba, None, None, None),
+                          out_spec=("model", ba, None, None))
     ex_g = ex_g.reshape(n_experts, g * capacity, d)  # (E, g*C, d)
     gate = torch.bmm(ex_g, params["w_gate"].to(dt))
     up = torch.bmm(ex_g, params["w_up"].to(dt))
     ex_out = torch.bmm(F.silu(gate) * up, params["w_down"].to(dt))
-    ex_out = slot_transpose(ex_out.reshape(n_experts, g, capacity, d))
+    ex_out = slot_transpose(ex_out.reshape(n_experts, g, capacity, d),
+                            constrain=constrain,
+                            in_spec=("model", ba, None, None),
+                            out_spec=(ba, None, None, None))
     return combine(ex_out.reshape(g * n_experts, capacity, d))
 
 

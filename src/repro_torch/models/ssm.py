@@ -25,10 +25,11 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import truncated_normal
+from repro_torch.models.layers import P, is_dtensor, truncated_normal
 
 __all__ = [
     "init_mamba2",
+    "mamba2_specs",
     "mamba2_forward",
     "ssd_chunked",
     "ssd_step",
@@ -72,6 +73,14 @@ def init_mamba2(gen: torch.Generator, d: int, *, expand: int = 2,
                 ngroups=ngroups, d_conv=d_conv, headdim=headdim,
                 conv_dim=conv_dim)
     return p, meta
+
+
+def mamba2_specs():
+    """Logical specs of :func:`init_mamba2`'s params."""
+    return {"w_in": P("data", "model"), "conv_w": P(None, "model"),
+            "conv_b": P("model"), "A_log": P("model"), "D": P("model"),
+            "dt_bias": P("model"), "norm_scale": P("model"),
+            "w_out": P("model", "data")}
 
 
 def _split_in(proj, meta):
@@ -126,6 +135,9 @@ def ssd_chunked(x, dt, b, c, a_log, d_skip, meta=None, *, chunk: int = 128,
     work (the L x L masked-decay product) happens inside the chunk loop,
     so live memory is O(L^2) per head, not O(S*L).
     """
+    if is_dtensor(x):
+        return _ssd_on_local_heads(x, dt, b, c, a_log, d_skip, meta,
+                                   chunk=chunk, h0=h0)
     bt, s, h, pdim = x.shape
     g, n = b.shape[2], b.shape[3]
     chunk = min(chunk, s)
@@ -169,6 +181,48 @@ def ssd_chunked(x, dt, b, c, a_log, d_skip, meta=None, *, chunk: int = 128,
                   .to(x.dtype))
     y = _d_skip(torch.cat(ys, dim=1), x, d_skip)
     return y, hprev.reshape(bt, h, pdim, n)
+
+
+def _ssd_on_local_heads(x, dt, b, c, a_log, d_skip, meta, *, chunk, h0):
+    """:func:`ssd_chunked` on DTensors, run on each rank's batch rows and
+    heads: the scan is independent per row and per head, so the heads
+    shard over the ``model`` axis (where the reference's specs put
+    ``A_log``, ``D`` and ``dt_bias``) when they divide it, the B/C groups
+    with them (or replicated, one group for all heads), and no op of the
+    scan goes through DTensor."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = x.device_mesh
+    h, g = x.shape[2], b.shape[2]
+    rows, heads = [], []
+    for i, p in enumerate(x.placements):
+        size = mesh.size(i)
+        rows.append(p == Shard(0))
+        heads.append(not rows[-1] and mesh.mesh_dim_names[i] == "model"
+                     and h % size == 0 and (g == 1 or g % size == 0))
+
+    def pl(head_dim):
+        return [Shard(0) if r else Shard(head_dim) if hd else Replicate()
+                for r, hd in zip(rows, heads)]
+
+    def grp(head_dim):
+        return [Shard(0) if r else (Shard(head_dim) if hd and g > 1
+                                    else Replicate())
+                for r, hd in zip(rows, heads)]
+
+    def local(t, placements):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        return t.redistribute(mesh, placements).to_local()
+
+    vec = [Shard(0) if hd else Replicate() for hd in heads]
+    y, h_last = ssd_chunked(
+        local(x, pl(2)), local(dt, pl(2)), local(b, grp(2)), local(c, grp(2)),
+        local(a_log, vec), local(d_skip, vec), meta, chunk=chunk,
+        h0=None if h0 is None else local(h0, pl(1)))
+    return (DTensor.from_local(y, mesh, pl(2), run_check=False),
+            DTensor.from_local(h_last, mesh, pl(1), run_check=False))
 
 
 def ssd_step(x, dt, b, c, a_log, d_skip, h0):

@@ -59,6 +59,7 @@ from repro_torch.models import ssm as ssm_mod
 __all__ = [
     "Cache",
     "cache_kind",
+    "cache_specs",
     "compute_params",
     "decode_step",
     "decode_step_ragged",
@@ -67,6 +68,7 @@ __all__ = [
     "init_params",
     "layer_trees",
     "mamba_meta",
+    "param_specs",
     "prefill_logits",
     "train_loss",
 ]
@@ -161,6 +163,43 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device="cuda"):
     return _cast_params(cfg, params)
 
 
+def _stacked(specs):
+    """Specs of a stack of layers: a leading unsharded layer axis."""
+    return _map(lambda s: L.P(None, *s), specs)
+
+
+def _layer_specs(cfg: ModelConfig, *, moe: bool):
+    attn = (mla_mod.mla_specs() if cfg.mla else
+            attn_mod.gqa_specs(cfg.qkv_bias, cfg.qk_norm))
+    mlp = (moe_mod.moe_specs(cfg.n_shared_experts) if moe
+           else L.mlp_specs(cfg.mlp_kind))
+    return {"attn": attn, "mlp": mlp, "ln1": L.rmsnorm_specs(),
+            "ln2": L.rmsnorm_specs()}
+
+
+def param_specs(cfg: ModelConfig):
+    """The logical :class:`~repro_torch.models.layers.PartitionSpec` of
+    every leaf of :func:`init_params`' tree, at the same paths (the
+    reference's second return value of ``init_params``)."""
+    _check_ported(cfg)
+    specs: dict[str, Any] = {"embed": L.embedding_specs()}
+    if not cfg.tie_embeddings:
+        specs["unembed"] = L.embedding_specs()
+    specs["final_norm"] = L.rmsnorm_specs()
+    if cfg.frontend != "none":
+        specs["frontend_proj"] = L.P("data", None)
+    if cfg.ssm:
+        specs["layers"] = _stacked({"mamba": ssm_mod.mamba2_specs(),
+                                    "ln": L.rmsnorm_specs()})
+        if cfg.attn_every:
+            specs["shared_attn"] = _layer_specs(cfg, moe=False)
+        return specs
+    if cfg.moe and cfg.first_k_dense:
+        specs["dense_layers"] = _stacked(_layer_specs(cfg, moe=False))
+    specs["layers"] = _stacked(_layer_specs(cfg, moe=cfg.moe))
+    return specs
+
+
 def mamba_meta(cfg: ModelConfig) -> dict:
     """The Mamba2 block's dimensions for ``cfg`` (``init_mamba2``'s
     ``meta``)."""
@@ -177,6 +216,8 @@ def mamba_meta(cfg: ModelConfig) -> dict:
 
 
 def _map(fn, tree):
+    if isinstance(tree, L.PartitionSpec):
+        return fn(tree)
     if isinstance(tree, dict):
         return {k: _map(fn, v) for k, v in tree.items()}
     if isinstance(tree, list):
@@ -308,7 +349,8 @@ def hidden_states(cfg: ModelConfig, params, tokens: torch.Tensor,
     dtype = _dtype(cfg.dtype)
     s = tokens.shape[1]
     dev = tokens.device
-    x = _embed_inputs(cfg, params, tokens, frontend_embeds, dtype)
+    x = L.constrain_batch_leading(
+        _embed_inputs(cfg, params, tokens, frontend_embeds, dtype))
     cos = sin = None
     if cfg.pos_emb == "rope":
         hd = cfg.qk_rope_head_dim if cfg.mla else cfg.resolved_head_dim
@@ -320,6 +362,7 @@ def hidden_states(cfg: ModelConfig, params, tokens: torch.Tensor,
         shared = params.get("shared_attn")
 
         def mamba_body(xx, lp, idx):
+            xx = L.constrain_batch_leading(xx)
             out, _ = ssm_mod.mamba2_forward(
                 lp["mamba"], meta, L.rmsnorm(lp["ln"], xx), chunk=cfg.ssm_chunk)
             xx = xx + out
@@ -334,8 +377,10 @@ def hidden_states(cfg: ModelConfig, params, tokens: torch.Tensor,
         return L.rmsnorm(params["final_norm"], x)
 
     def block(xx, lp, moe_layer):
-        xx = _dense_attn_block(cfg, lp, xx, cos, sin, positions)
-        return _ffn_block(cfg, lp, xx, moe_layer=moe_layer)
+        xx = _dense_attn_block(cfg, lp, L.constrain_batch_leading(xx), cos,
+                               sin, positions)
+        return L.constrain_batch_leading(
+            _ffn_block(cfg, lp, xx, moe_layer=moe_layer))
 
     body = _remat(cfg, block)
     for lp, moe_layer in _layer_list(cfg, params):
@@ -444,6 +489,28 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                  torch.zeros((), dtype=torch.int32, device=device))
 
 
+def cache_specs(cfg: ModelConfig, batch_axes) -> Cache:
+    """Logical specs of :func:`init_cache`'s tensors, as a :class:`Cache`
+    whose ``length`` is ``P()``.
+
+    KV caches are *sequence-sharded* on the model axis (decode-time
+    sequence parallelism): the GQA archs have ``n_kv`` = 8 < 16-way TP, so
+    head sharding cannot use the mesh, while the 32k/500k sequence always
+    divides it.
+    """
+    ba = batch_axes
+    kind = cache_kind(cfg)
+    if kind in ("ssm", "hybrid"):
+        data = (L.P(None, ba, None, "model"), L.P(None, ba, "model", None, None))
+        if kind == "hybrid":
+            data += (L.P(None, ba, "model", None, None),) * 2
+    elif kind == "mla":
+        data = (L.P(None, ba, "model", None),) * 2
+    else:
+        data = (L.P(None, ba, "model", None, None),) * 2
+    return Cache(kind, data, L.P())
+
+
 def _cache_max_len(cache: Cache) -> int:
     """Positions the cache holds: the k/v (or latent) length, 1 for an
     attention-free ``ssm`` cache."""
@@ -454,12 +521,26 @@ def _cache_max_len(cache: Cache) -> int:
     return 1
 
 
-@functools.lru_cache(maxsize=16)
+def _uncached_under_fake(fn):
+    """``fn`` cached per arguments, except under a fake mode (a dry-run
+    trace), whose tensors must neither enter the cache nor leave it."""
+    cached = functools.lru_cache(maxsize=16)(fn)
+
+    @functools.wraps(fn)
+    def get(*args):
+        from torch._guards import active_fake_mode
+
+        return fn(*args) if active_fake_mode() is not None else cached(*args)
+
+    return get
+
+
+@_uncached_under_fake
 def _rope_tables(head_dim: int, max_pos: int, theta: float, device):
     return L.rope_frequencies(head_dim, max_pos, theta, device=device)
 
 
-@functools.lru_cache(maxsize=16)
+@_uncached_under_fake
 def _sinusoid_table(seq: int, d: int, dtype, device):
     return L.sinusoidal_positions(seq, d, dtype, device=device)
 
@@ -506,6 +587,46 @@ def _ffn_block(cfg, lp, x, *, moe_layer):
     return x + ff
 
 
+def _shard_offset(t, mesh, dim: int) -> int:
+    """First global index of this rank's even shard of ``t``'s ``dim``
+    (mesh dimensions that shard it taken major first)."""
+    from torch.distributed.tensor import Shard
+
+    block, ways = 0, 1
+    for i, p in enumerate(t.placements):
+        if p == Shard(dim):
+            block = block * mesh.size(i) + mesh.get_local_rank(i)
+            ways *= mesh.size(i)
+    return block * (t.shape[dim] // ways)
+
+
+def _write_rows(buf, idx, value) -> None:
+    """``buf[r, idx[r]] = value[r]`` for every row ``r`` of a cache
+    DTensor ``buf`` ``(b, max_len, ...)`` sharded on its rows and
+    positions: each rank writes the rows it holds at the positions that
+    fall in its slice, on its local tensor (a position-sharded cache never
+    travels; DTensor alone would gather it).  ``idx``: ``(b,)`` positions,
+    ``value``: ``(b, ...)``."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = buf.device_mesh
+    if isinstance(idx, DTensor):
+        idx = idx.full_tensor()
+    rows_on = [p if p == Shard(0) else Replicate() for p in buf.placements]
+    if isinstance(value, DTensor):
+        value = value.redistribute(mesh, rows_on).to_local()
+    local = buf.to_local()
+    offset = [_shard_offset(buf, mesh, d) for d in (0, 1)]
+    n_rows, n_pos = local.shape[0], local.shape[1]
+    at = idx.to(local.device).long()[offset[0]:offset[0] + n_rows] - offset[1]
+    inside = (at >= 0) & (at < n_pos)
+    at = at.clamp(0, n_pos - 1)
+    rows = torch.arange(n_rows, device=local.device)
+    keep = local[rows, at]
+    mask = inside.reshape(-1, *(1,) * (value.dim() - 1))
+    local[rows, at] = torch.where(mask, value, keep)
+
+
 def decode_step_ragged(cfg: ModelConfig, params, cache: Cache,
                        tokens: torch.Tensor, lengths: torch.Tensor):
     """One token for every *slot* at per-slot positions (continuous
@@ -536,8 +657,12 @@ def decode_step_ragged(cfg: ModelConfig, params, cache: Cache,
         q, k, v = attn_mod.qkv_project(lp["attn"], h, cos, sin, positions,
                                        qk_norm=cfg.qk_norm)
         # per-slot scatter: slot b's token lands at its own position
-        kc[i, rows, idx] = k[:, 0].to(kc.dtype)
-        vc[i, rows, idx] = v[:, 0].to(vc.dtype)
+        if L.is_dtensor(kc):
+            _write_rows(kc[i], idx, k[:, 0].to(kc.dtype))
+            _write_rows(vc[i], idx, v[:, 0].to(vc.dtype))
+        else:
+            kc[i, rows, idx] = k[:, 0].to(kc.dtype)
+            vc[i, rows, idx] = v[:, 0].to(vc.dtype)
         o = attn_mod.decode_attention(q, kc[i], vc[i], lengths + 1)
         x = x + attn_mod.attention_output(lp["attn"], o, x.dtype)
         x = _ffn_block(cfg, lp, x, moe_layer=moe_layer)
@@ -580,8 +705,12 @@ def _decode_mla(cfg, params, data, x, cos, sin, positions, pos):
         h = L.rmsnorm(lp["ln1"], x)
         q_nope, q_rope, c_kv, k_rope = mla_mod.mla_latents(
             lp["attn"], h, cos, sin, positions, dims)
-        ckv[i].index_copy_(1, at, c_kv.to(ckv.dtype))
-        kr[i].index_copy_(1, at, k_rope.to(kr.dtype))
+        if L.is_dtensor(ckv):
+            _write_rows(ckv[i], at.expand(x.shape[0]), c_kv[:, 0].to(ckv.dtype))
+            _write_rows(kr[i], at.expand(x.shape[0]), k_rope[:, 0].to(kr.dtype))
+        else:
+            ckv[i].index_copy_(1, at, c_kv.to(ckv.dtype))
+            kr[i].index_copy_(1, at, k_rope.to(kr.dtype))
         o = mla_mod.mla_attention_decode(lp["attn"], q_nope, q_rope, dims,
                                          ckv[i], kr[i], pos + 1)
         x = _ffn_block(cfg, lp, x + o, moe_layer=moe_layer)
@@ -616,8 +745,12 @@ def _shared_attention(cfg, lp, kc, vc, x, cos, sin, positions, pos):
     h = L.rmsnorm(lp["ln1"], x)
     q, k, v = attn_mod.qkv_project(lp["attn"], h, cos, sin, positions,
                                    qk_norm=cfg.qk_norm)
-    kc.index_copy_(1, at, k.to(kc.dtype))
-    vc.index_copy_(1, at, v.to(vc.dtype))
+    if L.is_dtensor(kc):
+        _write_rows(kc, at.expand(x.shape[0]), k[:, 0].to(kc.dtype))
+        _write_rows(vc, at.expand(x.shape[0]), v[:, 0].to(vc.dtype))
+    else:
+        kc.index_copy_(1, at, k.to(kc.dtype))
+        vc.index_copy_(1, at, v.to(vc.dtype))
     o = attn_mod.decode_attention(q, kc, vc, pos + 1)
     x = x + attn_mod.attention_output(lp["attn"], o, x.dtype)
     return _ffn_block(cfg, lp, x, moe_layer=False)

@@ -78,9 +78,12 @@ Spans: ``repro.stable_merge``, ``repro.stable_merge_kway``,
 ``repro.merge_window``, ``repro.stable_sort`` (kernel dispatch) and
 ``repro.merge_kway`` sit inside ``obs.span``; ``repro.external_sort`` and
 the launcher's ``serve.prefill`` inside ``obs.host_span``; each decode
-step inside ``obs.step_span("decode", i)``.  The reference's
-``attach_hlo_report`` is XLA's and has no counterpart yet (ROADMAP.md,
-Queue 1 item 2).
+step inside ``obs.step_span("decode", i)``.
+
+``hlo.collectives``          event: the collective traffic counted on a
+                             traced step (``attach_hlo_report``).
+``hlo.report_failed``        event: attach_hlo_report swallowed an
+                             error (its type and repr).
 
 == Distributed layer (``repro_torch.distributed``; label ``device`` = rank) ==
 ``splitters.pairwise_rounds`` / ``splitters.kway_rounds`` gauges: the
@@ -116,6 +119,7 @@ from repro_torch.obs.registry import (
 )
 from repro_torch.obs.sink import JsonlSink, ListSink, Sink
 from repro_torch.obs.trace import (
+    attach_hlo_report,
     host_span,
     span,
     start_profile,
@@ -144,4 +148,5 @@ __all__ = [
     "step_span",
     "start_profile",
     "stop_profile",
+    "attach_hlo_report",
 ]

@@ -14,8 +14,9 @@ instrumented code dispatches nothing more on the off path):
 Plus the opt-in trace dump (:func:`start_profile` / :func:`stop_profile`,
 ``--profile-steps`` on the launcher): a ``torch.profiler.profile`` of the
 CPU, and of the card when there is one, written as a Chrome trace under
-``log_dir``.  The reference's ``attach_hlo_report`` reads XLA's compiled
-HLO and has no counterpart here (ROADMAP.md, Queue 1 item 2).
+``log_dir``.  :func:`attach_hlo_report` logs the collective traffic of a
+traced step (the reference reads it from XLA's compiled HLO; the port
+counts it with ``launch.hlo_stats.TraceStats``).
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ __all__ = [
     "step_span",
     "start_profile",
     "stop_profile",
+    "attach_hlo_report",
 ]
 
 
@@ -93,3 +95,34 @@ def stop_profile() -> bool:
     prof.stop()  # on_trace_ready writes <log_dir>/<host>_<pid>.<ms>.pt.trace.json
     log_event("obs.profile_stopped")
     return True
+
+
+def attach_hlo_report(name: str, stats_or_fn, **labels) -> dict | None:
+    """Log the predicted collective traffic of an entry point.
+
+    ``stats_or_fn`` is a :class:`~repro_torch.launch.hlo_stats.TraceStats`
+    that counted a step, or a callable of no arguments that runs one (it
+    is traced under a fresh ``TraceStats``).  Returns ``{total_bytes,
+    per_op_bytes, op_counts}`` and emits it as an ``hlo.collectives``
+    event, so runtime per-peer byte counters can be reconciled against
+    the prediction.
+
+    A report must never kill the launcher that asked for it: any failure
+    is logged as an ``hlo.report_failed`` event carrying the exception
+    type, and ``None`` is returned.
+    """
+    from repro_torch.launch.hlo_stats import TraceStats, trace_stats
+
+    try:
+        stats = stats_or_fn
+        if not isinstance(stats, TraceStats):
+            _, stats = trace_stats(stats_or_fn)
+        coll = stats.collective_bytes()
+    except Exception as e:  # a report is best-effort by contract
+        log_event("hlo.report_failed", entry=name,
+                  error_type=type(e).__name__, error=repr(e), **labels)
+        return None
+    log_event("hlo.collectives", entry=name, total_bytes=coll["total_bytes"],
+              per_op_bytes=coll["per_op_bytes"], op_counts=coll["op_counts"],
+              **labels)
+    return coll

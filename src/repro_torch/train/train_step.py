@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import constrain_batch_leading
 from repro_torch.models.transformer import layer_trees, train_loss
 from repro_torch.train.optimizer import _leaves, adamw_update, cosine_schedule
 
@@ -70,7 +71,8 @@ def build_train_step(cfg: ModelConfig, *, total_steps: int = 10_000,
         else:
             def micro(x, i):
                 mb = x.shape[0] // accum
-                return x[i * mb:(i + 1) * mb]
+                # on a mesh, the rows over the batch axes that divide them
+                return constrain_batch_leading(x[i * mb:(i + 1) * mb])
 
             loss, grads = 0.0, None
             for i in range(accum):

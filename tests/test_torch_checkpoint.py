@@ -225,3 +225,95 @@ def test_launcher_metrics_dir_and_profile_on_cpu(tmp_path):
     assert [r["value"] for r in loss] == pytest.approx(out["losses"])
     assert list((tmp_path / "profile").glob("*.pt.trace.json"))
     assert not obs.enabled()
+
+
+# -- specs and elastic re-sharding --------------------------------------------------
+
+RESHARD = r"""
+import datetime, json, sys
+import torch
+import torch.distributed as dist
+from torch.utils._pytree import tree_leaves
+from repro_torch.checkpoint import checkpointer as C
+from repro_torch.configs.registry import ARCHS, smoke_config
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.sharding import distribute
+from repro_torch.models import transformer as T
+
+rank, ckpt, init = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank,
+                        world_size=4, timeout=datetime.timedelta(seconds=120))
+cfg = smoke_config(ARCHS["deepseek-v3-671b"])  # bf16 params, MLA, MoE
+params = T.init_params(cfg, torch.Generator().manual_seed(4), device="cpu")
+mesh = make_mesh((2, 2), ("data", "model"), device_type="cpu")
+specs = dryrun.sanitize_specs(params, T.param_specs(cfg), mesh)
+C.save_checkpoint(ckpt, 3, {"params": distribute(params, specs, mesh)},
+                  specs={"params": specs})
+mesh41 = make_mesh((4, 1), ("data", "model"), device_type="cpu")
+back = C.restore_checkpoint(ckpt, 3, {"params": params}, mesh=mesh41)["params"]
+whole = C.restore_checkpoint(
+    ckpt, 3, {"params": T._map(torch.zeros_like, params)})["params"]
+differ = 0
+for a, b, c in zip(tree_leaves(params), tree_leaves(back), tree_leaves(whole)):
+    assert b.device_mesh is mesh41
+    full = b.full_tensor()
+    differ += int((a.view(torch.int16) if a.dtype == torch.bfloat16 else a).ne(
+        full.view(torch.int16) if full.dtype == torch.bfloat16 else full).sum())
+    differ += int((a.float() != c.float()).sum())
+dist.destroy_process_group()
+print("DIFFER", differ)
+"""
+
+
+def test_resharded_restore_on_four_gloo_ranks(tmp_path):
+    """Saved from a (2, 2) mesh with specs, restored with ``mesh=`` on
+    (4, 1) and unsharded: bit for bit, on 4 gloo ranks."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", RESHARD, str(r), str(tmp_path / "ck"),
+         str(tmp_path / "init")], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(4)]
+    outs = [p.communicate(timeout=300)[0] for p in procs]
+    assert all(p.returncode == 0 for p in procs), [o[-2000:] for o in outs]
+    assert all("DIFFER 0" in o for o in outs), outs
+    # every leaf's spec is in the manifest
+    specs = [e.get("spec") for e in _manifest(tmp_path / "ck" / "step_00000003")]
+    assert all(s is not None for s in specs)
+
+
+def test_specs_go_into_the_manifest_as_the_reference_writes_them(tmp_path):
+    from jax.sharding import NamedSharding
+
+    cfg = smoke_config(ARCHS["granite-3-2b"])
+    params = tf.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    specs = tf.param_specs(cfg)
+    path = ckpt.save_checkpoint(str(tmp_path), 5, {"params": params},
+                                specs={"params": specs})
+    ref_cfg = ref_smoke(REF_ARCHS["granite-3-2b"])
+    box = {}
+
+    def only(key):
+        p, s = ref_tf.init_params(ref_cfg, key)
+        box["s"] = s
+        return p
+
+    sds = jax.eval_shape(only, jax.random.key(0))
+    ref_ckpt.save_checkpoint(str(tmp_path / "ref"), 5, {"params": sds_zero(sds)},
+                             specs={"params": box["s"]})
+    ours = [(e["name"], e.get("spec")) for e in _manifest(path)]
+    theirs = [(e["name"], e.get("spec"))
+              for e in _manifest(tmp_path / "ref" / "step_00000005")]
+    assert ours == theirs
+    # the reference restores it onto a mesh, placing each leaf by its spec
+    mesh = jax.make_mesh((1, 1), ("data", "model"))
+    got = ref_ckpt.restore_checkpoint(str(tmp_path), 5,
+                                      {"params": sds}, mesh=mesh)
+    for (name, leaf), arr in zip(ckpt._flatten_with_paths({"params": params}),
+                                 jax.tree.leaves(got)):
+        assert isinstance(arr.sharding, NamedSharding), name
+        np.testing.assert_array_equal(np.asarray(arr), leaf.numpy())
+
+
+def sds_zero(sds):
+    return jax.tree.map(lambda s: jnp.zeros(s.shape, s.dtype), sds)

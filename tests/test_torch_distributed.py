@@ -486,3 +486,58 @@ def test_compressed_psum_within_quantisation_bound(runs):
 
 if __name__ == "__main__":
     _torch_spmd.main(_rank, _reference)
+
+
+# -- the form without explicit collectives ------------------------------------------
+
+
+def test_balanced_exchange_applies_its_constraints_around_the_swap():
+    """``group=None``: ``constrain(send, *in_spec)`` before the swap and
+    ``constrain(recv, *out_spec)`` after it, as the reference's GSPMD form;
+    without them the swap alone."""
+    import torch
+
+    from repro_torch.distributed.exchange import balanced_exchange, slot_transpose
+
+    x = torch.arange(2 * 3 * 4).reshape(2, 3, 4)
+    calls = []
+
+    def constrain(t, *spec):
+        calls.append((tuple(t.shape), spec))
+        return t
+
+    recv, lengths = balanced_exchange(x, constrain=constrain,
+                                      in_spec=(("data",), None, None),
+                                      out_spec=("model", ("data",), None))
+    assert lengths is None and torch.equal(recv, x.transpose(0, 1))
+    assert calls == [((2, 3, 4), (("data",), None, None)),
+                     ((3, 2, 4), ("model", ("data",), None))]
+    assert torch.equal(slot_transpose(x), x.transpose(0, 1))
+    with pytest.raises(ValueError, match="process group"):
+        balanced_exchange(x, torch.ones(2, dtype=torch.int32))
+
+
+def test_capacity_moe_passes_the_constraints_only_with_batch_axes():
+    """The MoE capacity dispatch over local groups hands ``constrain_spec``
+    to the slot swap only when a launcher set the batch axes; the layer's
+    output is the same either way on plain tensors."""
+    import torch
+
+    from repro_torch.configs.registry import ARCHS, smoke_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+
+    cfg = smoke_config(ARCHS["dbrx-132b"])
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    lp = {k: v[0] for k, v in params["layers"]["mlp"].items()}
+    x = torch.randn(2, 8, cfg.d_model)
+    kw = dict(n_experts=cfg.n_experts, top_k=cfg.moe_top_k, capacity_factor=1.25,
+              dispatch_groups=2, dispatch="capacity")
+    want = moe.moe_apply(lp, x, **kw)
+    L.set_batch_axes(("data",))
+    try:
+        got = moe.moe_apply(lp, x, **kw)
+    finally:
+        L.set_batch_axes(None)
+    assert torch.equal(got, want)

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports ``jax`` or the reference package ``repro``."""
+"""The port stands alone: no module of ``src/repro_torch``, not
+``chip_smoke.py`` and no ``examples/torch_*.py`` imports ``jax`` or the
+reference package ``repro``."""
 
 import os
 import re
@@ -11,7 +12,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("torch_*.py"))
 IMPORT = re.compile(r"^\s*(?:from|import)\s+(jax|repro)\b", re.MULTILINE)
 
 
@@ -43,7 +44,9 @@ def fresh_import():
         "repro_torch.train.train_step, repro_torch.train.compress\n"
         "import repro_torch.data, repro_torch.data.pipeline\n"
         "import repro_torch.checkpoint, repro_torch.checkpoint.checkpointer\n"
-        "import repro_torch.launch.train\n"
+        "import repro_torch.launch.train, repro_torch.launch.mesh, "
+        "repro_torch.launch.sharding, repro_torch.launch.hlo_stats, "
+        "repro_torch.launch.dryrun\n"
         "import repro_torch.distributed, warnings\n"
         "with warnings.catch_warnings(record=True) as caught:\n"
         "    warnings.simplefilter('always')\n"

@@ -464,3 +464,115 @@ def test_merge_runs_ranked_cuda_backend_on_cpu_raises(monkeypatch):
     monkeypatch.setenv(ops.BACKEND_ENV_VAR, "cuda")
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         merge_runs_ranked(keys, None)
+
+
+# --- the custom ops -----------------------------------------------------------------
+
+
+def _op_cases():
+    rng = np.random.default_rng(5)
+    a = torch.tensor(np.sort(rng.integers(0, 50, 5000)), dtype=torch.int32)
+    b = torch.tensor(np.sort(rng.integers(0, 50, 3000)), dtype=torch.int32)
+    cr = co_rank_batch(km.tile_bounds(8000, km.MERGE_TILE, "cpu"), a, b)
+    runs = torch.sort(torch.randn(4, 2000), dim=-1).values
+    cb = co_rank_kway_batch(km.tile_bounds(8000, km.KWAY_TILE, "cpu"), runs, None)
+    keys = torch.sort(torch.randint(0, 9, (6, 4, 16)), dim=-1).values.float()
+    vals = torch.arange(keys.numel(), dtype=torch.int32).reshape(keys.shape)
+    ops = torch.ops.repro_torch
+    return {
+        "merge_tile": (ops.merge_tile.default, (a, b, cr.j, cr.k)),
+        "merge_kway_tile": (ops.merge_kway_tile.default, (runs, cb, None, 8000)),
+        "merge_kway_tile+payload": (ops.merge_kway_tile.default,
+                                    (runs, cb, runs.clone(), 8000)),
+        "merge_kway_groups": (ops.merge_kway_groups.default, (keys, None)),
+        "merge_kway_groups+payload": (ops.merge_kway_groups.default,
+                                      (keys, vals)),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_op_cases()))
+def test_custom_op_passes_opcheck_on_the_cpu(case):
+    """Schema, fake (meta) implementation and dispatch of each op, run on
+    CPU tensors (the plain version is the body there)."""
+    op, args = _op_cases()[case]
+    torch.library.opcheck(op, args)
+
+
+@pytest.mark.parametrize("case", sorted(_op_cases()))
+def test_custom_op_equals_the_wrapper(case):
+    op, args = _op_cases()[case]
+    got = op(*args)
+    if op is torch.ops.repro_torch.merge_tile.default:
+        want = km.merge_tile(*args)
+        assert torch.equal(got, want)
+    elif op is torch.ops.repro_torch.merge_kway_tile.default:
+        want = km.merge_kway_tile(args[0], args[1], vals=args[2], out_len=args[3])
+        want = (want, None) if args[2] is None else want
+        assert torch.equal(got[0], want[0])
+        assert got[1].numel() == 0 if args[2] is None else torch.equal(got[1], want[1])
+    else:
+        want = km.merge_kway_tile_groups(*args)
+        assert torch.equal(got[0], want[0])
+        assert got[1].numel() == 0 if args[1] is None else torch.equal(got[1], want[1])
+
+
+def test_fake_tensors_go_through_the_ops_with_the_kernels_shapes():
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        keys = torch.empty((6, 4, 16), dtype=torch.int32)
+        k, v = km.merge_kway_tile_groups(keys, keys.float())
+        assert (k.shape, k.dtype, v.shape, v.dtype) == (
+            (6, 64), torch.int32, (6, 64), torch.float32)
+        assert km.merge_kway_tile_groups(keys)[1] is None
+        runs = torch.empty((4, 100), dtype=torch.bfloat16)
+        cb = torch.empty((2, 4), dtype=torch.int32)
+        assert km.merge_kway_tile(runs, cb, out_len=400).shape == (400,)
+        out = km.merge_kway_tile(runs, cb, vals=torch.empty((4, 100),
+                                                            dtype=torch.int64),
+                                 out_len=400)
+        assert out[1].dtype == torch.int64
+        a, jb = torch.empty(100), torch.empty(2, dtype=torch.int32)
+        assert km.merge_tile(a, a, jb, jb).shape == (200,)
+    assert km.merge_kway_tile_groups.launches == 0  # nothing launched
+
+
+GROUPS_ON_A_MESH = r"""
+import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+from repro_torch.kernels import merge as km
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_mesh
+
+km.register_dtensor_rules()
+dryrun.fake_process_group(4)
+mesh = make_mesh((4,), ("data",), device_type="cpu")
+keys = torch.sort(torch.randint(0, 9, (8, 4, 16)), dim=-1).values.int()
+vals = torch.arange(keys.numel(), dtype=torch.int32).reshape(keys.shape)
+dk = distribute_tensor(keys, mesh, [Shard(0)], src_data_rank=None)
+dv = distribute_tensor(vals, mesh, [Shard(0)], src_data_rank=None)
+k, v = km.merge_kway_tile_groups(dk, dv)
+assert isinstance(k, DTensor) and list(k.placements) == [Shard(0)], k.placements
+want = km.merge_kway_groups_plain(keys[:2], vals[:2])  # rank 0's groups
+assert torch.equal(k.to_local(), want[0]) and torch.equal(v.to_local(), want[1])
+r, _ = km.merge_kway_tile_groups(distribute_tensor(keys, mesh, [Replicate()],
+                                                   src_data_rank=None))
+assert list(r.placements) == [Replicate()]
+print("GROUPS OK")
+"""
+
+
+def test_grouped_op_keeps_its_group_shards_under_dtensor():
+    """The DTensor rule: groups sharded on dim 0 stay sharded (each rank
+    merges its own groups); replicated groups stay replicated.  On a fake
+    group of 4 in a subprocess: rank 0's local result is its groups'."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    p = subprocess.run([sys.executable, "-c", GROUPS_ON_A_MESH],
+                       env={**os.environ, "PYTHONPATH": str(root / "src")},
+                       capture_output=True, text=True, timeout=300)
+    assert p.returncode == 0 and "GROUPS OK" in p.stdout, p.stderr[-3000:]

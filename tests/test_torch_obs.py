@@ -299,3 +299,52 @@ def test_profile_writes_a_trace_and_is_idempotent(tmp_path):
                                                "obs.profile_stopped"]
     (trace,) = tmp_path.glob("*.pt.trace.json")
     assert "decode#0" in trace.read_text()
+
+
+# ---------------------------------------------------------------------------
+# attach_hlo_report: the collective traffic of a traced step
+# ---------------------------------------------------------------------------
+
+
+def test_attach_hlo_report_takes_stats_or_a_step():
+    from repro_torch.launch.hlo_stats import TraceStats
+
+    stats = TraceStats()
+    stats.per_op_bytes["all-gather"] += 96
+    stats.op_counts["all-gather"] += 2
+    with obs.capture() as recs:
+        got = obs.attach_hlo_report("decode", stats, arch="qwen3-0.6b")
+        traced = obs.attach_hlo_report("step", lambda: torch.ones(3, 3) @ torch.ones(3, 3))
+        obs.flush()
+    assert got == {"total_bytes": 96, "per_op_bytes": {"all-gather": 96},
+                   "op_counts": {"all-gather": 2}}
+    assert traced == {"total_bytes": 0, "per_op_bytes": {}, "op_counts": {}}
+    assert [r["metric"] for r in recs] == ["hlo.collectives", "hlo.collectives"]
+    assert recs[0]["labels"] == {"entry": "decode", "total_bytes": 96,
+                                 "per_op_bytes": {"all-gather": 96},
+                                 "op_counts": {"all-gather": 2},
+                                 "arch": "qwen3-0.6b"}
+
+
+def test_attach_hlo_report_never_raises():
+    def broken():
+        raise RuntimeError("no step")
+
+    with obs.capture() as recs:
+        assert obs.attach_hlo_report("broken", broken, arch="x") is None
+        obs.flush()
+    assert [(r["metric"], r["labels"]["error_type"], r["labels"]["entry"])
+            for r in recs] == [("hlo.report_failed", "RuntimeError", "broken")]
+
+
+def test_attach_hlo_report_is_the_reference_s_record():
+    """The same event names and label keys as ``repro.obs.attach_hlo_report``
+    (whose input is HLO text, here one with no collective)."""
+    with obs.capture() as ours:
+        obs.attach_hlo_report("e", lambda: None, k=1)
+        obs.flush()
+    with ref_obs.capture() as theirs:
+        ref_obs.attach_hlo_report("e", "HloModule m\n\nENTRY %main () -> () {\n}\n", k=1)
+        ref_obs.flush()
+    assert [(r["metric"], sorted(r["labels"])) for r in ours] == \
+        [(r["metric"], sorted(r["labels"])) for r in theirs]
