@@ -48,8 +48,8 @@ def default_backend(device: torch.device | str = "cpu") -> str:
 
 def announce(op: str, backend: str, source: str, device) -> None:
     """Log ``kernels.backend_selected`` once per distinct ``(op, backend,
-    source)``: ``source`` is ``arg``, ``env`` or ``auto`` for the policy's
-    choice, ``shape`` where a call's shape sends it past the kernel."""
+    source)``: ``source`` is ``arg``, ``env`` or ``auto``, where the
+    policy's choice came from."""
     key = (op, backend, source)
     if key not in _LOGGED_CHOICES:
         _LOGGED_CHOICES.add(key)

@@ -1,16 +1,21 @@
 """Stable merge sort built from the co-rank merge primitive (torch port).
 
-Bottom-up merge sort with configurable fan-out: a pass merges groups of
-``fanout`` adjacent runs of width ``w`` into runs of width ``fanout*w``
-with the k-way rank merge of ``repro_torch.core.kway`` — ``log_fanout(n)``
-passes.  Every pass is stable (lower run index wins ties, runs are laid
-out in input order), so the whole sort is stable without key widening.
+Bottom-up merge sort with configurable fan-out, run as one pass plan
+(:func:`sort_plan`).  The first pass is a *leaf*: ``np2 // s`` groups of
+``s`` runs of width 1, a stable k-way merge that sorts every segment of
+``s`` keys at once.  Then each pass merges groups of ``fanout`` adjacent
+runs of width ``w`` into runs of width ``fanout*w`` with the k-way rank
+merge of ``repro_torch.core.kway``.  Every pass is stable (lower run
+index wins ties, runs are laid out in input order), so the whole sort is
+stable without key widening, and its output is the reference's, whose
+passes start at width 1: a stable sort has one result.
 
 The input is padded to the next power of two with :func:`sentinel_max`,
 which sorts to the tail and is sliced off.  The ``g`` groups of a pass are
-a leading batch dimension.  On the card, a pass whose groups fit one tile
-of ``merge_kway_tile`` runs as that kernel's grouped launch
-(:func:`merge_runs_ranked`).
+a leading batch dimension.  Both backends run the same plan.  On the card
+every pass is a kernel (:func:`merge_runs_ranked`): groups that fit one
+tile of the grouped launch go to it, wider groups to the wide grouped
+launch, whose blocks co-rank their own tiles.
 """
 
 from __future__ import annotations
@@ -18,8 +23,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.backend import announce, dispatch
-from repro_torch.core.kway import kway_positions
+from repro_torch.backend import dispatch
+from repro_torch.core.engine import SIDE_STRICT, SIDE_TIES
 
 __all__ = [
     "merge_sort",
@@ -29,12 +34,25 @@ __all__ = [
     "merge_pairs_ranked",
     "merge_runs_plain",
     "sentinel_max",
+    "sort_plan",
     "DEFAULT_FANOUT",
+    "LEAF_WIDTH",
 ]
 
 # Pass fan-out used when callers don't specify one (the reference's
 # default; the port has not re-measured it on the card).
 DEFAULT_FANOUT = 4
+
+# Segment width of the leaf pass: the grouped launch's tile
+# (``kernels.merge.GROUPS_TILE``, 4096 = 256 threads x 16 keys).  Tile and
+# segment are both powers of two, so a leaf segment fills a tile exactly:
+# no slot is padding, and every pass of a plan but the last merges whole
+# powers of two.  The widest such segment also leaves the fewest wide
+# passes after it: a sort of 2^24 keys takes 1 + 6 passes at fan-out 4,
+# where s = 2048 would take 1 + 7.  The leaf's own cost per key grows
+# with log2(s)^2 (a bitonic network in registers and shuffles), but it
+# reads and writes every key once whatever s is, as each wide pass does.
+LEAF_WIDTH = 4096
 
 
 def sentinel_max(dtype) -> torch.Tensor:
@@ -52,25 +70,69 @@ def sentinel_max(dtype) -> torch.Tensor:
 
 
 def _pad_max(x: torch.Tensor, pad: int) -> torch.Tensor:
+    if not pad:
+        return x
     fill = torch.full((pad,), sentinel_max(x.dtype).item(), dtype=x.dtype,
                       device=x.device)
     return torch.cat([x, fill])
 
 
 def merge_runs_plain(keys: torch.Tensor, vals: torch.Tensor | None = None):
-    """Rank merge of groups of adjacent sorted runs in torch ops: every
-    element's output position (``kway_positions``, lower run wins ties),
-    then a scatter.  ``keys`` ``(g, k, w)`` -> ``(g, k*w)``; ``vals`` (same
-    shape, or ``None``) follows the same permutation."""
+    """Merge of groups of adjacent sorted runs in torch ops, as a tree of
+    pairwise rank merges: ``keys`` ``(g, k, w)`` -> ``(g, k*w)``; ``vals``
+    (same shape, or ``None``) follows the same permutation.
+
+    Level by level, runs ``(2i, 2i+1)`` of every group merge: an element
+    lands at its index in its own run plus the sibling's elements before
+    it (strict for the left run, ties for the right: the lower run wins
+    ties); an odd last run passes through.  ``ceil(log2 k)`` levels of one
+    batched ``searchsorted`` each, so a leaf of ``k`` runs of width 1
+    costs ``log2 k`` searches, not ``k``.
+    """
     g, k, w = keys.shape
-    pos = kway_positions(keys).reshape(g, k * w).long()
-    out_k = torch.empty((g, k * w), dtype=keys.dtype, device=keys.device)
-    out_k.scatter_(1, pos, keys.reshape(g, k * w))
-    if vals is None:
-        return out_k, None
-    out_v = torch.empty((g, k * w), dtype=vals.dtype, device=vals.device)
-    out_v.scatter_(1, pos, vals.reshape(g, k * w))
-    return out_k, out_v
+    dev = keys.device
+    out_k = keys.reshape(g, k, w)
+    out_v = None if vals is None else vals.reshape(g, k, w)
+    while k > 1:
+        pairs, odd = k // 2, k % 2
+        lk = out_k[:, :2 * pairs].reshape(g * pairs, 2, w)
+        left, right = lk[:, 0].contiguous(), lk[:, 1].contiguous()
+        idx = torch.arange(w, device=dev)
+        pos_l = idx + torch.searchsorted(right, left, side=SIDE_STRICT)
+        pos_r = idx + torch.searchsorted(left, right, side=SIDE_TIES)
+        pos = torch.cat([pos_l, pos_r], dim=1)
+        merged = torch.empty((g * pairs, 2 * w), dtype=keys.dtype, device=dev)
+        merged.scatter_(1, pos, lk.reshape(g * pairs, 2 * w))
+        merged = merged.reshape(g, pairs, 2 * w)
+        if out_v is not None:
+            lv = out_v[:, :2 * pairs].reshape(g * pairs, 2 * w)
+            mv = torch.empty_like(lv).scatter_(1, pos, lv)
+            mv = mv.reshape(g, pairs, 2 * w)
+        if odd:  # the last run passes through, padded to the new width
+            merged = _with_tail(merged, out_k[:, -1:], w,
+                                sentinel_max(keys.dtype).item())
+            if out_v is not None:
+                mv = _with_tail(mv, out_v[:, -1:], w, 0)
+        out_k = merged
+        out_v = None if out_v is None else mv
+        k, w = pairs + odd, 2 * w
+    n = keys.shape[1] * keys.shape[2]
+    if keys.shape[1] == 1:  # nothing merged: a copy, as every other shape
+        out_k = out_k.clone()
+        out_v = None if out_v is None else out_v.clone()
+    out_k = out_k.reshape(g, -1)[:, :n]
+    return out_k, (None if out_v is None else out_v.reshape(g, -1)[:, :n])
+
+
+def _with_tail(merged: torch.Tensor, tail: torch.Tensor, w: int, fill):
+    """Append the odd run ``tail`` ``(g, 1, w)`` to ``merged`` ``(g, p,
+    2w)`` as one more run of width ``2w``, its second half ``fill``.  With
+    :func:`sentinel_max` as the fill the run stays sorted, and as the
+    right run of every later level (the last run always is) its fill loses
+    every tie, so the fill ends up after every real element."""
+    pad = torch.full((tail.shape[0], 1, w), fill, dtype=tail.dtype,
+                     device=tail.device)
+    return torch.cat([merged, torch.cat([tail, pad], dim=2)], dim=1)
 
 
 def merge_runs_ranked(keys: torch.Tensor, vals: torch.Tensor | None):
@@ -79,12 +141,13 @@ def merge_runs_ranked(keys: torch.Tensor, vals: torch.Tensor | None):
     wins ties).  ``vals`` (same shape) follows the same permutation.
 
     The backend follows ``REPRO_TORCH_MERGE_BACKEND`` (``repro_torch.backend``;
-    ``auto`` is ``cuda`` for CUDA tensors).  On ``cuda``, groups that fit
-    one tile (``k*w <= KWAY_TILE``) go to the grouped launch of
-    ``merge_kway_tile`` (``kernels.merge.merge_kway_tile_groups``), which
-    raises for dtypes it does not take; wider groups (merge sort's later
-    passes) keep :func:`merge_runs_plain`.  That choice is made by shape,
-    before any launch, and is logged once as ``kernels.backend_selected``.
+    ``auto`` is ``cuda`` for CUDA tensors).  On ``cuda`` every shape runs
+    a kernel: groups that fit one tile (``k*w <= GROUPS_TILE``) go to the
+    grouped launch (``kernels.merge.merge_kway_tile_groups``), wider ones
+    to the wide grouped launch (``kernels.merge.merge_kway_groups_wide``).
+    Each raises for what it does not take (a key dtype, too many runs);
+    neither gives way to torch ops.  The ``torch`` backends run
+    :func:`merge_runs_plain`.
     """
     op = "merge_runs_ranked"
     keys = keys.contiguous()
@@ -93,9 +156,9 @@ def merge_runs_ranked(keys: torch.Tensor, vals: torch.Tensor | None):
         # Imported here: kernels.merge imports this module.
         from repro_torch.kernels import merge as km
 
-        if keys.shape[1] * keys.shape[2] <= km.KWAY_TILE:
+        if keys.shape[1] * keys.shape[2] <= km.GROUPS_TILE:
             return km.merge_kway_tile_groups(keys, vals)
-        announce(op, "torch", "shape", keys.device)
+        return km.merge_kway_groups_wide(keys, vals)
     return merge_runs_plain(keys, vals)
 
 
@@ -124,13 +187,27 @@ def _check_fanout(fanout: int) -> int:
     return fanout
 
 
-def _passes(np2: int, fanout: int):
-    """``(g, group, width)`` of every merge pass over ``np2`` elements."""
-    width = 1
+def sort_plan(n: int, fanout: int = DEFAULT_FANOUT) -> list[tuple[int, int, int]]:
+    """``(g, k, w)`` of every pass of a sort of ``n`` keys: the leaf
+    ``(np2 // s, s, 1)`` with ``s = min(LEAF_WIDTH, np2)``, then the
+    ``fanout`` passes from width ``s`` up (the last one merges fewer runs
+    when ``fanout`` does not divide what is left).  ``np2`` is ``n``
+    padded to a power of two; empty for ``n <= 1``.  Both backends run
+    this plan; on the card a pass with ``k*w <= GROUPS_TILE`` is one
+    grouped launch and a wider one a wide launch.
+    """
+    fanout = _check_fanout(fanout)
+    if n <= 1:
+        return []
+    np2 = _padded_pow2(n)
+    s = min(LEAF_WIDTH, np2)
+    plan = [(np2 // s, s, 1)]
+    width = s
     while width < np2:
         group = min(fanout, np2 // width)  # both powers of two: divides
-        yield np2 // (group * width), group, width
+        plan.append((np2 // (group * width), group, width))
         width *= group
+    return plan
 
 
 def sort_key_val(keys: torch.Tensor, vals: torch.Tensor,
@@ -145,8 +222,8 @@ def sort_key_val(keys: torch.Tensor, vals: torch.Tensor,
         return keys, vals
     np2 = _padded_pow2(n)
     k = _pad_max(keys, np2 - n)
-    v = torch.cat([vals, vals.new_zeros(np2 - n)])
-    for g, group, width in _passes(np2, fanout):
+    v = torch.cat([vals, vals.new_zeros(np2 - n)]) if np2 > n else vals
+    for g, group, width in sort_plan(n, fanout):
         k, v = merge_runs_ranked(
             k.reshape(g, group, width), v.reshape(g, group, width)
         )
@@ -162,7 +239,7 @@ def merge_sort(x: torch.Tensor, fanout: int = DEFAULT_FANOUT) -> torch.Tensor:
         return x
     np2 = _padded_pow2(n)
     k = _pad_max(x, np2 - n)
-    for g, group, width in _passes(np2, fanout):
+    for g, group, width in sort_plan(n, fanout):
         k, _ = merge_runs_ranked(k.reshape(g, group, width), None)
         k = k.reshape(np2)
     return k[:n]

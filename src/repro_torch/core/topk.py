@@ -4,8 +4,9 @@
 Two-stage tournament, every stage a stable merge:
 
   1. split the row into blocks of ``block`` elements and merge-sort each
-     block (vectorised over blocks: ``log4(block)`` passes of
-     :func:`~repro_torch.core.mergesort.merge_runs_ranked`);
+     block (vectorised over blocks: the block's
+     :func:`~repro_torch.core.mergesort.sort_plan`, one leaf merge of
+     ``block`` runs of width 1 when the block fits the leaf);
   2. collapse the per-block candidate lists with k-way candidate merges:
      groups of up to ``fanout`` lists merge in one step and only the top
      ``k`` of each merged ``fanout*k`` list survive, ``log_fanout(nb)``
@@ -16,9 +17,10 @@ batch is a leading group dimension of every block sort and candidate
 merge, so a whole decode batch costs one ``merge_runs_ranked`` call per
 pass and per round, whatever ``b`` is.  Row ``i`` of the result equals
 :func:`merge_topk` of row ``i`` bit for bit: no reshape groups across
-rows.  On the card every one of those calls is a grouped launch of the
-``merge_kway_tile`` kernel (a group of ``fanout*k`` or ``4*width``
-elements fits one tile).
+rows.  On the card every one of those calls is a kernel launch: the
+block sort one grouped launch (a block fits its tile), each round another
+(a group of ``fanout*k`` candidates fits it), so a top-k is ``1 + rounds``
+launches.
 
 Stability: equal keys resolve to the lower original index (the lower run
 wins ties in every merge, and runs stay in index order), as
@@ -30,10 +32,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.mergesort import (
-    DEFAULT_FANOUT,
     _padded_pow2,
     merge_runs_ranked,
     sentinel_max,
+    sort_plan,
 )
 
 __all__ = [
@@ -50,18 +52,17 @@ TOURNAMENT_FANOUT = 16
 
 
 def _desc_sort_blocks(keys: torch.Tensor, vals: torch.Tensor):
-    """Stable ascending sort within each row of ``keys``/``vals`` (r, w)."""
+    """Stable ascending sort within each row of ``keys``/``vals`` (r, w),
+    ``w`` a power of two: the rows' merge-sort plan (``sort_plan(w)``,
+    every pass's groups times ``r``).  A row that fits the leaf is one
+    merge of ``w`` runs of width 1, so the whole block sort is one call."""
     r, w = keys.shape
-    width = 1
     k, v = keys, vals
-    while width < w:
-        group = min(DEFAULT_FANOUT, w // width)
-        g = (r * w) // (group * width)
+    for g, group, width in sort_plan(w):
         k2, v2 = merge_runs_ranked(
-            k.reshape(g, group, width), v.reshape(g, group, width)
+            k.reshape(r * g, group, width), v.reshape(r * g, group, width)
         )
         k, v = k2.reshape(r, w), v2.reshape(r, w)
-        width *= group
     return k, v
 
 

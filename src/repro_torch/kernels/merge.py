@@ -1,8 +1,8 @@
 """Hopper kernels for the co-rank stable merge (port of
 ``repro.kernels.merge``).
 
-Two kernels, each with a wrapper, a launch counter and a plain PyTorch
-version of the same function:
+Two TPU kernels, ported as four launches, each with a wrapper, a launch
+counter and a plain PyTorch version of the same function:
 
 * :func:`merge_tile` (``csrc/merge_tile.cu``) replaces
   ``merge_tile_kernel``: the output tiles of ``S`` elements of the stable
@@ -14,11 +14,22 @@ version of the same function:
   merges of the tile's non-empty segments in shared memory; ragged runs
   need no kernel change.
 
-Both take their tile windows from phase 1 — the co-ranks of every tile
-boundary ``r*S`` (``co_rank_batch`` / ``co_rank_kway_batch`` in torch
-ops, as the reference computes them in plain JAX).  :func:`merge_tiled`
-and :func:`merge_kway_tiled` run both phases, the counterparts of
-``merge_pallas`` and ``merge_kway_pallas``.
+* :func:`merge_kway_tile_groups` (``merge_kway_groups_kernel`` in the
+  same file) merges ``g`` independent groups of ``k`` runs of width ``w``
+  that fit one tile of ``GROUPS_TILE`` (the sort plan's leaf, the top-k's
+  block sort and rounds): persistent blocks, each group sorted in
+  registers and warp shuffles, the levels above a warp in shared memory.
+* :func:`merge_kway_groups_wide` (``merge_kway_groups_wide_kernel``)
+  merges groups wider than that tile (merge sort's later passes): each
+  block co-ranks its own output tile inside its group and merges it as
+  ``merge_kway_tile`` does.
+
+The first two take their tile windows from phase 1 — the co-ranks of
+every tile boundary ``r*S`` (``co_rank_batch`` / ``co_rank_kway_batch`` in
+torch ops, as the reference computes them in plain JAX).
+:func:`merge_tiled` and :func:`merge_kway_tiled` run both phases, the
+counterparts of ``merge_pallas`` and ``merge_kway_pallas``.  The grouped
+launches need no phase 1.
 
 A wrapper takes its plain version only when every tensor it is given lies
 on the CPU (the tests).  For CUDA tensors it launches the kernel on the
@@ -26,11 +37,11 @@ current stream, or raises; it never falls back.
 
 Each entry point is also a ``torch.library`` custom op
 (``repro_torch::merge_tile``, ``::merge_kway_tile``,
-``::merge_kway_groups``) whose fake implementation gives the kernel's
-output shapes and dtypes, so a fake trace (the dry-run) runs through it,
-and :func:`register_dtensor_rules` gives DTensor its sharding: groups are
-independent, so the grouped launch may shard its group axis; the other
-two replicate.  Real CUDA tensors call the kernel directly (the
+``::merge_kway_groups``, ``::merge_kway_groups_wide``) whose fake
+implementation gives the kernel's output shapes and dtypes, so a fake
+trace (the dry-run) runs through it, and :func:`register_dtensor_rules`
+gives DTensor its sharding: groups are independent, so the grouped
+launches may shard their group axis; the other two replicate.  Real CUDA tensors call the kernel directly (the
 dispatcher's own cost per call stays off the host-bound decode path);
 fake tensors, DTensors and CPU tensors go through the op, whose body is
 the same wrapper code.
@@ -45,7 +56,7 @@ import torch
 
 from repro_torch.core.corank import co_rank_batch
 from repro_torch.core.engine import SIDE_STRICT, SIDE_TIES
-from repro_torch.core.kway import co_rank_kway_batch
+from repro_torch.core.kway import co_rank_kway_batch, kway_positions
 from repro_torch.core.mergesort import merge_runs_plain
 from repro_torch.kernels import _build
 
@@ -58,11 +69,17 @@ __all__ = [
     "merge_kway_tiled",
     "merge_kway_tile_groups",
     "merge_kway_groups_plain",
+    "merge_kway_groups_wide",
+    "merge_kway_groups_wide_plain",
+    "wide_tile_cuts",
     "tile_bounds",
     "register_dtensor_rules",
     "MERGE_TILE",
     "KWAY_TILE",
     "KWAY_MAX_RUNS",
+    "GROUPS_TILE",
+    "WIDE_TILE",
+    "WIDE_MAX_RUNS",
 ]
 
 #: Output elements per tile: the one tile each kernel is compiled for
@@ -72,6 +89,16 @@ MERGE_TILE = 3840
 KWAY_TILE = 3840
 #: Most runs one k-way launch merges (each block reads its tile's k cuts).
 KWAY_MAX_RUNS = 16384
+#: Elements of one tile of the grouped launch: 256 threads with 16 keys
+#: each, a power of two, so that power-of-two groups (the sort plan's
+#: leaf, ``LEAF_WIDTH`` in ``core.mergesort``) fill it exactly.  A group
+#: of ``k*w`` elements is padded to the next power of two inside a tile.
+GROUPS_TILE = 4096
+#: Output elements of one tile of the wide grouped launch (the k-way
+#: kernel's tile and merge tree) and the most runs a group of it may have
+#: (a block co-ranks its tiles with a window of each run in shared memory).
+WIDE_TILE = 3840
+WIDE_MAX_RUNS = 64
 
 _MERGE_DTYPES = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2,
                  torch.int64: 3, torch.float64: 4, torch.float16: 5}
@@ -102,7 +129,15 @@ def _merge_kway_tile_fn():
 @functools.cache
 def _merge_kway_groups_fn():
     fn = _build.load("merge_kway_tile").merge_kway_groups_launch
-    fn.argtypes = [_I, _I, _I, _I, _I, _L, _I, _P, _P, _P, _P, _P]
+    fn.argtypes = [_I, _I, _I, _I, _I, _L, _P, _P, _P, _P, _P]
+    fn.restype = _I
+    return fn
+
+
+@functools.cache
+def _merge_kway_groups_wide_fn():
+    fn = _build.load("merge_kway_tile").merge_kway_groups_wide_launch
+    fn.argtypes = [_I, _I, _I, _I, _L, _L, _P, _P, _P, _P, _P]
     fn.restype = _I
     return fn
 
@@ -465,8 +500,9 @@ def merge_kway_tile_groups(keys, vals=None):
     ``vals`` ``None`` without a payload.
 
     The grouped launch of ``csrc/merge_kway_tile.cu``: a group must fit one
-    tile (``k*w <= KWAY_TILE``), so its cuts are trivial and there is no
-    phase 1; each CUDA block packs ``KWAY_TILE // (k*w)`` whole groups.
+    tile (``k*w <= GROUPS_TILE``), so there is no phase 1; a tile holds
+    ``GROUPS_TILE // P`` whole groups, each padded to ``P``, the next power
+    of two of ``k*w``.  Wider groups: :func:`merge_kway_groups_wide`.
     """
     _on_cpu(keys, vals)
     if _direct(keys, vals):
@@ -498,8 +534,8 @@ def _merge_kway_groups_impl(keys, vals=None):
     g, k, w = keys.shape
     _check(keys.dtype in _KWAY_DTYPES, op,
            f"keys must be one of {list(_KWAY_DTYPES)}, got {keys.dtype}")
-    _check(k >= 1 and w >= 1 and k * w <= KWAY_TILE, op,
-           f"a group of k*w = {k}*{w} must fit one tile of {KWAY_TILE}")
+    _check(k >= 1 and w >= 1 and k * w <= GROUPS_TILE, op,
+           f"a group of k*w = {k}*{w} must fit one tile of {GROUPS_TILE}")
     _check(keys.is_contiguous(), op, "keys must be contiguous")
     if vals is not None:
         _check(vals.shape == keys.shape and vals.is_contiguous()
@@ -507,33 +543,167 @@ def _merge_kway_groups_impl(keys, vals=None):
                "payload must be a contiguous 4- or 8-byte tensor shaped like keys")
     if on_cpu:
         return merge_kway_groups_plain(keys, vals)
+    out = _launch_groups(_merge_kway_groups_fn(), op, GROUPS_TILE, keys, vals)
+    if g > 0:
+        merge_kway_tile_groups.launches += 1
+    return out
+
+
+def _launch_groups(fn, op: str, tile: int, keys, vals):
+    """Launch a grouped kernel on ``keys`` ``(g, k, w)`` (and ``vals``) on
+    the current stream of their device: ``(out_k, out_v)`` ``(g, k*w)``."""
+    g, k, w = keys.shape
     out_k = torch.empty((g, k * w), dtype=keys.dtype, device=keys.device)
     out_v = None if vals is None else torch.empty(
         (g, k * w), dtype=vals.dtype, device=vals.device)
-    if g > 0:
-        with torch.cuda.device(keys.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = _merge_kway_groups_fn()(
-                _KWAY_DTYPES[keys.dtype],
-                0 if vals is None else vals.element_size(), KWAY_TILE, k, w,
-                g, KWAY_TILE // (k * w), keys.data_ptr(),
-                None if vals is None else vals.data_ptr(), out_k.data_ptr(),
-                None if out_v is None else out_v.data_ptr(), stream,
-            )
-        _raise_on_error(op, err)
-        merge_kway_tile_groups.launches += 1
+    if g == 0:
+        return out_k, out_v
+    with torch.cuda.device(keys.device):
+        err = fn(
+            _KWAY_DTYPES[keys.dtype], 0 if vals is None else vals.element_size(),
+            tile, k, w, g, keys.data_ptr(),
+            None if vals is None else vals.data_ptr(), out_k.data_ptr(),
+            None if out_v is None else out_v.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on_error(op, err)
     return out_k, out_v
 
 
 merge_kway_tile_groups.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# k-way, grouped and wide: merge_kway_groups_wide
+# ---------------------------------------------------------------------------
+
+
+def wide_tile_cuts(keys, tile: int = WIDE_TILE) -> torch.Tensor:
+    """Cut vectors of every output tile boundary ``min(r*tile, k*w)`` of
+    every group, in torch ops: ``keys`` ``(g, k, w)`` -> int32 ``(g,
+    ceil(k*w/tile) + 1, k)``; row ``r`` of group ``i`` is
+    ``co_rank_kway_batch`` of that boundary over the runs ``keys[i]``
+    (the run-index tie-break: ``cut_q(i) = |{t : rank(q, t) < i}|``,
+    counted from every element's merged rank)."""
+    g, k, w = keys.shape
+    bounds = tile_bounds(k * w, tile, keys.device)  # (tiles + 1,)
+    pos = kway_positions(keys).contiguous()  # (g, k, w), rising in each run
+    cuts = torch.searchsorted(
+        pos, bounds.expand(g, k, -1).contiguous(), side="left",
+        out_int32=True)
+    return cuts.transpose(1, 2).contiguous()
+
+
+def merge_kway_groups_wide_plain(keys, vals=None, *, tile: int = WIDE_TILE):
+    """Plain version of :func:`merge_kway_groups_wide`: the kernel's
+    function in torch ops.  Every tile's cuts (:func:`wide_tile_cuts`),
+    then each element's tile ``r`` (the one whose cuts bracket it in its
+    run) and its place there: ``r*tile`` plus its index past the tile's
+    cut in its own run plus, for every other run, that run's elements of
+    the same tile before it (strict for later runs, ties for earlier
+    ones: the lower run wins), as :func:`merge_tile_plain` counts inside
+    its windows."""
+    g, k, w = keys.shape
+    dev = keys.device
+    cuts = wide_tile_cuts(keys, tile).long()  # (g, tiles + 1, k)
+    t = torch.arange(w, device=dev)
+    loc, tiles = [], []
+    for q in range(k):
+        own = cuts[:, :, q].contiguous()  # (g, tiles + 1)
+        r = torch.searchsorted(own, t.expand(g, w).contiguous(),
+                               side="right") - 1  # (g, w)
+        place = t - torch.gather(own, 1, r)
+        for qq in range(k):
+            if qq == q:
+                continue
+            side = SIDE_TIES if qq < q else SIDE_STRICT
+            cnt = torch.searchsorted(keys[:, qq].contiguous(),
+                                     keys[:, q].contiguous(), side=side)
+            lo = torch.gather(cuts[:, :, qq], 1, r)
+            hi = torch.gather(cuts[:, :, qq], 1, r + 1)
+            place = place + torch.minimum(torch.maximum(cnt, lo), hi) - lo
+        loc.append(place)
+        tiles.append(r)
+    pos = (torch.stack(tiles, 1) * tile + torch.stack(loc, 1)).reshape(g, k * w)
+    out_k = torch.empty((g, k * w), dtype=keys.dtype, device=dev)
+    out_k.scatter_(1, pos, keys.reshape(g, k * w))
+    if vals is None:
+        return out_k, None
+    out_v = torch.empty((g, k * w), dtype=vals.dtype, device=dev)
+    out_v.scatter_(1, pos, vals.reshape(g, k * w))
+    return out_k, out_v
+
+
+def merge_kway_groups_wide(keys, vals=None):
+    """Merge ``g`` independent groups of ``k`` sorted runs in one launch,
+    for groups of any width: ``keys`` ``(g, k, w)`` -> ``(g, k*w)`` stably
+    merged (lower run wins ties), ``vals`` (same shape, any 4- or 8-byte
+    dtype) carried along.  Returns ``(keys, vals)``, ``vals`` ``None``
+    without a payload.  ``1 <= k <= WIDE_MAX_RUNS``; keys of the k-way
+    kernel's six dtypes.
+
+    The wide grouped launch of ``csrc/merge_kway_tile.cu``: a CUDA block
+    takes a few consecutive output tiles of ``WIDE_TILE`` elements of one
+    group.  It co-ranks their boundaries across the group's runs itself (no
+    phase-1 launch, no host read), then stages exactly each tile's segments
+    and merges them with ``merge_kway_tile``'s merge tree.
+    """
+    _on_cpu(keys, vals)
+    if _direct(keys, vals):
+        return _merge_kway_groups_wide_impl(keys, vals)
+    out_k, out_v = torch.ops.repro_torch.merge_kway_groups_wide(keys, vals)
+    return out_k, (None if vals is None else out_v)
+
+
+@torch.library.custom_op("repro_torch::merge_kway_groups_wide", mutates_args=())
+def _merge_kway_groups_wide_op(
+        keys: torch.Tensor,
+        vals: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Both outputs always: the payload is empty without ``vals``."""
+    out_k, out_v = _merge_kway_groups_wide_impl(keys, vals)
+    return out_k, keys.new_empty((0,)) if out_v is None else out_v
+
+
+@_merge_kway_groups_wide_op.register_fake
+def _(keys, vals):
+    g, k, w = keys.shape
+    return (keys.new_empty((g, k * w)),
+            keys.new_empty((0,)) if vals is None else vals.new_empty((g, k * w)))
+
+
+def _merge_kway_groups_wide_impl(keys, vals=None):
+    op = "merge_kway_groups_wide"
+    on_cpu = _on_cpu(keys, vals)
+    _check(keys.dim() == 3, op, f"keys must be (g, k, w), got {tuple(keys.shape)}")
+    g, k, w = keys.shape
+    _check(keys.dtype in _KWAY_DTYPES, op,
+           f"keys must be one of {list(_KWAY_DTYPES)}, got {keys.dtype}")
+    _check(1 <= k <= WIDE_MAX_RUNS, op,
+           f"k must be in [1, {WIDE_MAX_RUNS}] runs a group, got {k}")
+    _check(w >= 1 and k * w < 1 << 31, op,
+           f"a group of k*w = {k}*{w} elements must be non-empty and under 2^31")
+    _check(keys.is_contiguous(), op, "keys must be contiguous")
+    if vals is not None:
+        _check(vals.shape == keys.shape and vals.is_contiguous()
+               and vals.element_size() in (4, 8), op,
+               "payload must be a contiguous 4- or 8-byte tensor shaped like keys")
+    if on_cpu:
+        return merge_kway_groups_wide_plain(keys, vals)
+    out = _launch_groups(_merge_kway_groups_wide_fn(), op, WIDE_TILE, keys, vals)
+    if g > 0:
+        merge_kway_groups_wide.launches += 1
+    return out
+
+
+merge_kway_groups_wide.launches = 0
+
+
 @functools.cache
 def register_dtensor_rules() -> None:
-    """DTensor shardings of the three ops: ``merge_kway_groups`` takes its
-    groups (dim 0) sharded or replicated, payload alike; ``merge_tile``
-    and ``merge_kway_tile`` cut along co-ranks that span the whole input,
-    so they replicate.  Also ``aten.detach_`` (placements kept) where the
+    """DTensor shardings of the four ops: ``merge_kway_groups`` and
+    ``merge_kway_groups_wide`` take their groups (dim 0) sharded or
+    replicated, payload alike; ``merge_tile`` and ``merge_kway_tile`` cut
+    along co-ranks that span the whole input, so they replicate.  Also ``aten.detach_`` (placements kept) where the
     installed DTensor lacks it."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import register_sharding
@@ -546,7 +716,6 @@ def register_dtensor_rules() -> None:
             return [([p], [p]) for p in
                     [Replicate(), Partial(), *map(Shard, range(x.ndim))]]
 
-    @register_sharding(torch.ops.repro_torch.merge_kway_groups.default)
     def _groups(keys, vals):
         pv = None if vals is None else Replicate()
         rules = [([Replicate(), Replicate()], [Replicate(), pv])]
@@ -554,6 +723,10 @@ def register_dtensor_rules() -> None:
         rules.append(([Shard(0), Shard(0) if vals is not None else Replicate()],
                       [Shard(0), sv]))
         return rules
+
+    for op in (torch.ops.repro_torch.merge_kway_groups.default,
+               torch.ops.repro_torch.merge_kway_groups_wide.default):
+        register_sharding(op)(_groups)
 
     @register_sharding(torch.ops.repro_torch.merge_tile.default)
     def _tile(a, b, jb, kb):

@@ -48,6 +48,12 @@ def fresh_import():
         "repro_torch.launch.sharding, repro_torch.launch.hlo_stats, "
         "repro_torch.launch.dryrun\n"
         "import repro_torch.distributed, warnings\n"
+        "import repro_torch.kernels.bench\n"
+        "from repro_torch.kernels.merge import merge_kway_groups_wide\n"
+        "import torch\n"
+        "print('ops', sorted(n for n in ('merge_tile', 'merge_kway_tile', "
+        "'merge_kway_groups', 'merge_kway_groups_wide') "
+        "if hasattr(torch.ops.repro_torch, n)))\n"
         "with warnings.catch_warnings(record=True) as caught:\n"
         "    warnings.simplefilter('always')\n"
         "    import repro_torch.core.distributed\n"
@@ -75,3 +81,11 @@ def test_importing_the_port_builds_nothing(fresh_import):
 
 def test_distributed_shim_warns_on_import(fresh_import):
     assert "shim warns ['DeprecationWarning']" in fresh_import
+
+
+def test_the_four_custom_ops_register_without_jax(fresh_import):
+    """Both grouped launches' ops (and the two tiled ones) register when the
+    port is imported with ``jax`` and ``repro`` blocked, and nothing is
+    built for them."""
+    assert ("ops ['merge_kway_groups', 'merge_kway_groups_wide', "
+            "'merge_kway_tile', 'merge_tile']") in fresh_import

@@ -9,6 +9,8 @@ held against their plain versions on the card in
 ``tests/test_torch_kernels_cuda.py``.  All comparisons are bit for bit.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -440,7 +442,7 @@ def test_grouped_merge_matches_reference_merge_runs_ranked(g, k, w):
 
 def test_grouped_wrapper_checks_on_cpu():
     keys = torch.zeros((2, 4, 8), dtype=torch.int32)
-    wide = torch.zeros((1, 4, km.KWAY_TILE // 4 + 1), dtype=torch.int32)
+    wide = torch.zeros((1, 4, km.GROUPS_TILE // 4 + 1), dtype=torch.int32)
     with pytest.raises(ValueError, match="must fit one tile"):
         km.merge_kway_tile_groups(wide)
     with pytest.raises(ValueError, match="keys must be one of"):
@@ -454,6 +456,118 @@ def test_grouped_wrapper_checks_on_cpu():
     before = km.merge_kway_tile_groups.launches
     km.merge_kway_tile_groups(keys, keys)  # CPU: the plain version
     assert km.merge_kway_tile_groups.launches == before
+
+
+# --- the wide grouped launch -----------------------------------------------------
+
+def _wide_keys(kind, shape, seed):
+    """(keys as numpy, keys as torch, numpy keys that order like them)."""
+    rng = np.random.default_rng(seed)
+    if kind == "all ties":
+        x = np.zeros(shape, np.float32)
+    elif kind == "int64":
+        x = rng.integers(-5, 5, shape) * (1 << 40)
+        x[rng.random(shape) < 0.1] = np.iinfo(np.int64).max
+    else:  # float32 or bfloat16 with +-0.0, +-inf and the largest finite
+        x = rng.integers(-6, 6, shape).astype(np.float32)
+        u = rng.random(shape)
+        for i, v in enumerate((np.inf, -np.inf, 0.0, -0.0, 3.0e38)):
+            x[(u >= 0.04 * i) & (u < 0.04 * (i + 1))] = v
+    x = np.sort(x, axis=-1, kind="stable")
+    t = torch.from_numpy(x)
+    if kind == "bfloat16":
+        t = t.to(torch.bfloat16)  # 3e38 rounds to a finite bf16, order kept
+        x = t.float().numpy()
+    return x, t
+
+
+@functools.cache
+def _ref_merge_jit(fn):
+    """One jitted reference merge, so cases of one shape and dtype share a
+    compile."""
+    import jax
+
+    return jax.jit(fn)
+
+
+#: (g, k, w): groups just above the grouped launch's tile (4096) for k = 2,
+#: 3, 4, 8 and 64, and groups of several wide tiles.
+WIDE_SHAPES = [(2, 2, 2049), (3, 3, 1400), (1, 4, 1025), (2, 8, 513),
+               (1, 64, 65), (2, 4, 3000)]
+
+
+@pytest.mark.parametrize("kind", ["float32", "all ties", "int64", "bfloat16"])
+@pytest.mark.parametrize("g,k,w", WIDE_SHAPES)
+def test_wide_launch_plain_matches_reference_and_numpy(g, k, w, kind):
+    """The wide launch's plain version (and the port's merge_runs_ranked,
+    which routes these groups to it) against the reference's jitted
+    merge_runs_ranked and a stable numpy sort of each group, bits
+    compared; an int64 payload with int64 keys, int32 otherwise."""
+    import jax
+
+    from repro.core.mergesort import merge_runs_ranked as ref_merge
+    from repro_torch.core.mergesort import merge_runs_ranked
+
+    x, keys = _wide_keys(kind, (g, k, w), g * k * w)
+    pay = np.int64 if kind == "int64" else np.int32
+    vals = np.arange(g * k * w, dtype=pay).reshape(g, k, w) * 3 - 1
+    order = np.argsort(x.reshape(g, -1), axis=1, kind="stable")
+    want_v = np.take_along_axis(vals.reshape(g, -1), order, 1)
+    bits = {2: np.int16, 4: np.int32, 8: np.int64}[keys.element_size()]
+    jkeys = keys.view(torch.int16).numpy().view(jnp.bfloat16)         if kind == "bfloat16" else x
+    with jax.enable_x64(kind == "int64"):  # 64-bit keys stay 64-bit
+        rk, rv = _ref_merge_jit(ref_merge)(jnp.asarray(jkeys), jnp.asarray(vals))
+        rk, rv = np.asarray(rk), np.asarray(rv)
+    ref_bits = rk.view(bits)
+    for gk, gv in (km.merge_kway_groups_wide(keys, torch.from_numpy(vals)),
+                   merge_runs_ranked(keys, torch.from_numpy(vals))):
+        got_bits = gk.view({2: torch.int16, 4: torch.int32,
+                            8: torch.int64}[keys.element_size()]).numpy()
+        np.testing.assert_array_equal(got_bits, ref_bits)
+        np.testing.assert_array_equal(gv.numpy(), rv)
+        np.testing.assert_array_equal(gv.numpy(), want_v)
+
+
+@pytest.mark.parametrize("g,k,w", WIDE_SHAPES)
+def test_wide_tile_cuts_match_reference_co_rank(g, k, w):
+    """Every wide tile's boundary cuts, against the reference's jitted
+    co_rank_kway_batch and the port's, group by group, and against the
+    numpy count of each run's elements among the first i merged."""
+    import jax
+
+    from repro.core.kway import co_rank_kway_batch as ref_co_rank
+
+    x, keys = _wide_keys("float32", (g, k, w), k + w)
+    cuts = km.wide_tile_cuts(keys).numpy()
+    bounds = km.tile_bounds(k * w, km.WIDE_TILE, "cpu")
+    assert cuts.shape == (g, bounds.numel(), k)
+    ref = jax.jit(ref_co_rank)
+    for i in range(g):
+        want = np.asarray(ref(jnp.asarray(bounds.numpy()), jnp.asarray(x[i])))
+        np.testing.assert_array_equal(cuts[i], want)
+        np.testing.assert_array_equal(
+            cuts[i], co_rank_kway_batch(bounds, keys[i]).numpy())
+        run_of = np.argsort(x[i].reshape(-1), kind="stable") // w
+        for r, b in enumerate(bounds.tolist()):
+            np.testing.assert_array_equal(
+                cuts[i, r], np.bincount(run_of[:b], minlength=k))
+
+
+def test_wide_wrapper_checks_on_cpu():
+    keys = torch.zeros((2, 4, 2000), dtype=torch.int32)
+    with pytest.raises(ValueError, match=r"k must be in \[1, 64\]"):
+        km.merge_kway_groups_wide(torch.zeros((1, 65, 100), dtype=torch.int32))
+    with pytest.raises(ValueError, match="keys must be one of"):
+        km.merge_kway_groups_wide(keys.short())
+    with pytest.raises(ValueError, match="payload"):
+        km.merge_kway_groups_wide(keys, keys.short())
+    with pytest.raises(ValueError, match="contiguous"):
+        km.merge_kway_groups_wide(keys[:, :, ::2])
+    with pytest.raises(ValueError, match=r"\(g, k, w\)"):
+        km.merge_kway_groups_wide(keys[0])
+    before = km.merge_kway_groups_wide.launches
+    km.merge_kway_groups_wide(keys, keys)  # CPU: the plain version
+    assert km.merge_kway_groups_wide.launches == before
 
 
 def test_merge_runs_ranked_cuda_backend_on_cpu_raises(monkeypatch):
@@ -478,6 +592,8 @@ def _op_cases():
     cb = co_rank_kway_batch(km.tile_bounds(8000, km.KWAY_TILE, "cpu"), runs, None)
     keys = torch.sort(torch.randint(0, 9, (6, 4, 16)), dim=-1).values.float()
     vals = torch.arange(keys.numel(), dtype=torch.int32).reshape(keys.shape)
+    wide = torch.sort(torch.randint(0, 9, (2, 3, 1500)), dim=-1).values.float()
+    wide_vals = torch.arange(wide.numel()).reshape(wide.shape)
     ops = torch.ops.repro_torch
     return {
         "merge_tile": (ops.merge_tile.default, (a, b, cr.j, cr.k)),
@@ -487,6 +603,10 @@ def _op_cases():
         "merge_kway_groups": (ops.merge_kway_groups.default, (keys, None)),
         "merge_kway_groups+payload": (ops.merge_kway_groups.default,
                                       (keys, vals)),
+        "merge_kway_groups_wide": (ops.merge_kway_groups_wide.default,
+                                   (wide, None)),
+        "merge_kway_groups_wide+payload": (ops.merge_kway_groups_wide.default,
+                                           (wide, wide_vals)),
     }
 
 
@@ -511,7 +631,10 @@ def test_custom_op_equals_the_wrapper(case):
         assert torch.equal(got[0], want[0])
         assert got[1].numel() == 0 if args[2] is None else torch.equal(got[1], want[1])
     else:
-        want = km.merge_kway_tile_groups(*args)
+        wrapper = (km.merge_kway_groups_wide
+                   if op is torch.ops.repro_torch.merge_kway_groups_wide.default
+                   else km.merge_kway_tile_groups)
+        want = wrapper(*args)
         assert torch.equal(got[0], want[0])
         assert got[1].numel() == 0 if args[1] is None else torch.equal(got[1], want[1])
 
@@ -534,7 +657,13 @@ def test_fake_tensors_go_through_the_ops_with_the_kernels_shapes():
         assert out[1].dtype == torch.int64
         a, jb = torch.empty(100), torch.empty(2, dtype=torch.int32)
         assert km.merge_tile(a, a, jb, jb).shape == (200,)
+        wide = torch.empty((3, 4, 5000), dtype=torch.bfloat16)
+        k, v = km.merge_kway_groups_wide(wide, wide.long())
+        assert (k.shape, k.dtype, v.shape, v.dtype) == (
+            (3, 20000), torch.bfloat16, (3, 20000), torch.int64)
+        assert km.merge_kway_groups_wide(wide)[1] is None
     assert km.merge_kway_tile_groups.launches == 0  # nothing launched
+    assert km.merge_kway_groups_wide.launches == 0
 
 
 GROUPS_ON_A_MESH = r"""
@@ -558,13 +687,25 @@ assert torch.equal(k.to_local(), want[0]) and torch.equal(v.to_local(), want[1])
 r, _ = km.merge_kway_tile_groups(distribute_tensor(keys, mesh, [Replicate()],
                                                    src_data_rank=None))
 assert list(r.placements) == [Replicate()]
+wide = torch.sort(torch.randint(0, 9, (8, 4, 1100)), dim=-1).values.int()
+wv = torch.arange(wide.numel(), dtype=torch.int64).reshape(wide.shape)
+dk = distribute_tensor(wide, mesh, [Shard(0)], src_data_rank=None)
+dv = distribute_tensor(wv, mesh, [Shard(0)], src_data_rank=None)
+k, v = km.merge_kway_groups_wide(dk, dv)
+assert isinstance(k, DTensor) and list(k.placements) == [Shard(0)], k.placements
+want = km.merge_kway_groups_wide_plain(wide[:2], wv[:2])
+assert torch.equal(k.to_local(), want[0]) and torch.equal(v.to_local(), want[1])
+r, _ = km.merge_kway_groups_wide(distribute_tensor(wide, mesh, [Replicate()],
+                                                   src_data_rank=None))
+assert list(r.placements) == [Replicate()]
 print("GROUPS OK")
 """
 
 
 def test_grouped_op_keeps_its_group_shards_under_dtensor():
-    """The DTensor rule: groups sharded on dim 0 stay sharded (each rank
-    merges its own groups); replicated groups stay replicated.  On a fake
+    """The DTensor rule of both grouped launches: groups sharded on dim 0
+    stay sharded (each rank merges its own groups); replicated groups stay
+    replicated.  On a fake
     group of 4 in a subprocess: rank 0's local result is its groups'."""
     import os
     import subprocess

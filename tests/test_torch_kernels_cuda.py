@@ -280,11 +280,12 @@ def test_merge_kway_tile_wide_keys_wide_payload_on_card(cuda_device, k,
 # --- the grouped launch of merge_kway_tile --------------------------------------
 
 #: (g, k, w) of every merge of one top-k of qwen3-0.6b's 16 x 151936 logits
-#: at k = 50, block 128, fanout 4: the four block-sort passes, then the six
+#: at k = 50, block 128, fanout 4: the block sort in one launch (and the four
+#: fan-out-4 passes the reference's plan takes for it), then the six
 #: tournament rounds.
-TOPK_GROUPS = [(607744, 4, 1), (151936, 4, 4), (37984, 4, 16), (18992, 2, 64),
-               (4752, 4, 50), (1200, 4, 50), (304, 4, 50), (80, 4, 50),
-               (32, 4, 50), (16, 2, 50)]
+TOPK_GROUPS = [(18992, 128, 1), (607744, 4, 1), (151936, 4, 4), (37984, 4, 16),
+               (18992, 2, 64), (4752, 4, 50), (1200, 4, 50), (304, 4, 50),
+               (80, 4, 50), (32, 4, 50), (16, 2, 50)]
 
 
 def _sorted_groups(shape, dtype, device, seed):
@@ -301,21 +302,7 @@ def _sorted_groups(shape, dtype, device, seed):
 
 
 def _groups_both(keys, vals):
-    before = km.merge_kway_tile_groups.launches
-    got = km.merge_kway_tile_groups(keys, vals)
-    assert km.merge_kway_tile_groups.launches == before + 1
-    want = km.merge_kway_groups_plain(keys, vals)
-    for x, y in zip(got, want):
-        if x is not None:
-            assert torch.equal(x.view(torch.uint8), y.view(torch.uint8))
-    # Against a stable sort of each group's elements (ties to lower run).
-    gk = keys.reshape(keys.shape[0], -1)
-    order = torch.sort(gk + 0 if gk.is_floating_point() else gk, dim=1,
-                       stable=True).indices
-    assert torch.equal(got[0], torch.gather(gk, 1, order))
-    if vals is not None:
-        assert torch.equal(got[1], torch.gather(
-            vals.reshape(vals.shape[0], -1), 1, order))
+    _both(km.merge_kway_tile_groups, km.merge_kway_groups_plain, keys, vals)
 
 
 @pytest.mark.parametrize("g,k,w", TOPK_GROUPS)
@@ -352,33 +339,140 @@ def test_grouped_launch_dtypes_on_card(cuda_device, dtype, val_dtype):
     _groups_both(keys, vals)
 
 
-def test_merge_runs_ranked_routes_by_shape_on_card(cuda_device):
-    """Groups that fit a tile go to the grouped launch, which raises for
-    key dtypes it does not take; wider groups keep the torch-ops rank
-    merge."""
-    from repro_torch.core.mergesort import (
-        merge_runs_plain,
-        merge_runs_ranked,
-        merge_sort,
-    )
+def _extreme_groups(shape, dtype, device, seed):
+    """Sorted runs of duplicates with +-0.0, +-inf and the dtype's largest
+    finite value (floats) or its max and min (integers) mixed in."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randint(-6, 6, shape, generator=g, device=device).to(dtype)
+    u = torch.rand(shape, generator=g, device=device)
+    if dtype.is_floating_point:
+        specials = (float("inf"), float("-inf"), 0.0, -0.0,
+                    torch.finfo(dtype).max)
+    else:
+        specials = (torch.iinfo(dtype).max, torch.iinfo(dtype).min, 0)
+    for i, v in enumerate(specials):
+        x[(u >= 0.05 * i) & (u < 0.05 * (i + 1))] = v
+    return torch.sort(x, dim=-1, stable=True).values
 
-    keys = _sorted_groups((64, 4, 50), torch.float32, cuda_device, 1)
-    km.merge_kway_tile_groups.launches = 0
-    got, _ = merge_runs_ranked(keys, None)
-    assert km.merge_kway_tile_groups.launches == 1
-    assert torch.equal(got, km.merge_kway_groups_plain(keys)[0])
-    wide = _sorted_groups((2, 4, 1000), torch.float32, cuda_device, 2)
-    got, _ = merge_runs_ranked(wide, None)
-    assert km.merge_kway_tile_groups.launches == 1
-    assert torch.equal(got, merge_runs_plain(wide, None)[0])
+
+def _both(launch, plain, keys, vals):
+    """One launch against its plain version and a stable sort of each
+    group, bits compared."""
+    counter = launch.launches
+    got = launch(keys, vals)
+    assert launch.launches == counter + 1
+    want = plain(keys, vals)
+    for x, y in zip(got, want):
+        if x is not None:
+            assert torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+    gk = keys.reshape(keys.shape[0], -1)
+    order = torch.sort(gk + 0 if gk.is_floating_point() else gk, dim=1,
+                       stable=True).indices
+    assert torch.equal(got[0].view(torch.uint8),
+                       torch.gather(gk, 1, order).view(torch.uint8))
+    if vals is not None:
+        assert torch.equal(got[1], torch.gather(
+            vals.reshape(vals.shape[0], -1), 1, order))
+
+
+VAL_DTYPES = [None, torch.int32, torch.float32, torch.int64, torch.float64]
+
+
+def _payload(shape, val_dtype, device):
+    if val_dtype is None:
+        return None
+    n = int(np.prod(shape))
+    return (torch.arange(n, device=device) * 7 - 3).to(val_dtype).reshape(shape)
+
+
+@pytest.mark.parametrize("val_dtype", VAL_DTYPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_leaf_pass_every_power_of_two_on_card(cuda_device, dtype, val_dtype):
+    """The sort plan's leaf ``(g, s, 1)`` at every power of two up to the
+    grouped launch's tile, every key dtype and payload width."""
+    s = 1
+    while s <= km.GROUPS_TILE:
+        g = max(1, 3 * km.GROUPS_TILE // s + 1)  # a ragged last tile
+        shape = (g, s, 1)
+        keys = _extreme_groups(shape, dtype, cuda_device, s)
+        _both(km.merge_kway_tile_groups, km.merge_kway_groups_plain, keys,
+              _payload(shape, val_dtype, cuda_device))
+        s *= 2
+
+
+@pytest.mark.parametrize("g,k,w", [(1, 4, 4096), (2, 2, 2049), (5, 3, 1500),
+                                   (7, 8, 600), (3, 64, 97), (1, 1, 5000),
+                                   (300, 4, 1025), (2, 4, 65536),
+                                   (1, 2, 1 << 20), (4, 16, 4096)])
+def test_wide_launch_shapes_on_card(cuda_device, g, k, w):
+    """The wide grouped launch: k from 1 to 64, groups just above the tile,
+    odd widths (tiles off a 16-byte boundary), one group and many."""
+    shape = (g, k, w)
+    keys = _extreme_groups(shape, torch.float32, cuda_device, k * w)
+    _both(km.merge_kway_groups_wide, km.merge_kway_groups_wide_plain, keys,
+          _payload(shape, torch.int32, cuda_device))
+    _both(km.merge_kway_groups_wide, km.merge_kway_groups_wide_plain, keys,
+          None)
+
+
+@pytest.mark.parametrize("val_dtype", VAL_DTYPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_wide_launch_dtypes_on_card(cuda_device, dtype, val_dtype):
+    shape = (3, 4, 2000)
+    keys = _extreme_groups(shape, dtype, cuda_device, 11)
+    _both(km.merge_kway_groups_wide, km.merge_kway_groups_wide_plain, keys,
+          _payload(shape, val_dtype, cuda_device))
+
+
+def test_wide_launch_all_ties_and_sorted_runs_on_card(cuda_device):
+    """Every key equal (the lower run wins every tie), and runs that do
+    not interleave at all (every cut at a run's end or start)."""
+    for keys in (torch.zeros((2, 4, 3000), device=cuda_device),
+                 torch.arange(2 * 4 * 3000, device=cuda_device,
+                              dtype=torch.int64).reshape(2, 4, 3000),
+                 torch.arange(2 * 4 * 3000, device=cuda_device,
+                              dtype=torch.int32).reshape(2, 4, 3000).flip(1)
+                 .contiguous()):
+        _both(km.merge_kway_groups_wide, km.merge_kway_groups_wide_plain, keys,
+              _payload(keys.shape, torch.int64, cuda_device))
+
+
+def test_merge_runs_ranked_routes_by_shape_on_card(cuda_device, monkeypatch):
+    """On the card every shape runs a kernel: groups that fit the grouped
+    launch's tile go to it, wider ones to the wide launch, and no shape
+    reaches the torch-ops merge; a key dtype neither kernel takes raises,
+    and so do more runs a group than the wide launch takes."""
+    from repro_torch.core import mergesort
+
+    def refuse(*args):
+        raise AssertionError("merge_runs_plain ran on the cuda backend")
+
+    monkeypatch.setattr(mergesort, "merge_runs_plain", refuse)
+    counts = lambda: (km.merge_kway_tile_groups.launches,  # noqa: E731
+                      km.merge_kway_groups_wide.launches)
+    km.merge_kway_tile_groups.launches = km.merge_kway_groups_wide.launches = 0
+    for shape in ((64, 4, 50), (2, 4096, 1), (2, 4, 1000), (2, 4, 1025),
+                  (3, 2, 9000)):
+        keys = _sorted_groups(shape, torch.float32, cuda_device, shape[2])
+        got, _ = mergesort.merge_runs_ranked(keys, None)
+        want = km.merge_kway_groups_plain(keys)[0]
+        assert torch.equal(got, want), shape
+    assert counts() == (3, 2)
     small = _sorted_groups((8, 4, 8), torch.int32, cuda_device, 3).short()
     with pytest.raises(ValueError, match="keys must be one of"):
-        merge_runs_ranked(small, None)
-    assert km.merge_kway_tile_groups.launches == 1
+        mergesort.merge_runs_ranked(small, None)
+    with pytest.raises(ValueError, match="keys must be one of"):
+        mergesort.merge_runs_ranked(small.repeat(1, 1, 1000), None)
+    many = _sorted_groups((1, km.WIDE_MAX_RUNS + 1, 100), torch.int32,
+                          cuda_device, 4)
+    with pytest.raises(ValueError, match=f"k must be in \\[1, {km.WIDE_MAX_RUNS}\\]"):
+        mergesort.merge_runs_ranked(many, None)
+    assert counts() == (3, 2)
     x = torch.randint(0, 100, (100_003,), device=cuda_device,
                       dtype=torch.int32)
-    assert torch.equal(merge_sort(x), torch.sort(x, stable=True).values)
-    assert km.merge_kway_tile_groups.launches == 1 + 5  # widths 1..256
+    assert torch.equal(mergesort.merge_sort(x), torch.sort(x, stable=True).values)
+    plan = mergesort.sort_plan(x.numel())
+    assert counts() == (3 + 1, 2 + len(plan) - 1)  # the leaf, then wide passes
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -394,7 +488,7 @@ def test_topk_on_card_matches_cpu_and_sort(cuda_device, dtype):
     x = x.to(dtype)
     km.merge_kway_tile_groups.launches = 0
     vals, idx = merge_topk_batch(x, 50, fanout=4)
-    assert km.merge_kway_tile_groups.launches == 10
+    assert km.merge_kway_tile_groups.launches == 1 + 6  # block sort, rounds
     cv, ci = merge_topk_batch(x.cpu(), 50, fanout=4)
     assert torch.equal(idx.cpu(), ci)
     assert torch.equal(vals.cpu().view(torch.int16), cv.view(torch.int16))
@@ -405,12 +499,14 @@ def test_topk_on_card_matches_cpu_and_sort(cuda_device, dtype):
 # --- the MoE layer's merges: dispatch sort and router top-k -------------------------
 
 
-def _tile_passes(n: int) -> int:
-    """Passes of ``sort_key_val`` over ``n`` keys that fit one tile."""
-    from repro_torch.core.mergesort import DEFAULT_FANOUT, _padded_pow2, _passes
+def _plan_launches(n: int) -> tuple[int, int]:
+    """(grouped, wide) launches of a sort of ``n`` keys: its plan's passes
+    that fit the grouped launch's tile, and the others."""
+    from repro_torch.core.mergesort import sort_plan
 
-    return sum(group * width <= km.KWAY_TILE
-               for _, group, width in _passes(_padded_pow2(n), DEFAULT_FANOUT))
+    plan = sort_plan(n)
+    grouped = sum(k * w <= km.GROUPS_TILE for _, k, w in plan)
+    return grouped, len(plan) - grouped
 
 
 @pytest.mark.parametrize("routing", ["uniform", "one_hot"])
@@ -419,8 +515,9 @@ def _tile_passes(n: int) -> int:
 def test_moe_dispatch_on_grouped_launch_on_card(cuda_device, monkeypatch, t,
                                                 k, n_experts, routing):
     """The dispatch sort of dbrx's and deepseek-v3's shapes (a prefill
-    batch and a decode batch): every tile-sized pass a grouped launch, the
-    plan bit for bit the plain path's and ``torch.sort(stable=True)``'s."""
+    batch and a decode batch): the sort plan's leaf a grouped launch and
+    every wider pass a wide launch, the plan bit for bit the plain path's
+    and ``torch.sort(stable=True)``'s."""
     from repro_torch.models.moe import moe_dispatch, moe_dispatch_dropless
 
     g = torch.Generator(device=cuda_device).manual_seed(t * k)
@@ -428,9 +525,10 @@ def test_moe_dispatch_on_grouped_launch_on_card(cuda_device, monkeypatch, t,
                             device=cuda_device, dtype=torch.int32)
     if routing == "one_hot":
         experts[:, 0] = 3
-    km.merge_kway_tile_groups.launches = 0
+    km.merge_kway_tile_groups.launches = km.merge_kway_groups_wide.launches = 0
     got = moe_dispatch_dropless(experts, n_experts)
-    assert km.merge_kway_tile_groups.launches == _tile_passes(t * k)
+    assert (km.merge_kway_tile_groups.launches,
+            km.merge_kway_groups_wide.launches) == _plan_launches(t * k)
     plan = moe_dispatch(experts, n_experts, capacity=t * k // n_experts)
     monkeypatch.setenv(ops.BACKEND_ENV_VAR, "torch")
     want = moe_dispatch_dropless(experts, n_experts)

@@ -199,3 +199,76 @@ def test_check_fanout_default():
     assert mergesort._check_fanout(0) == ref_ms._check_fanout(0)
     assert mergesort.DEFAULT_FANOUT == ref_ms.DEFAULT_FANOUT
     assert mergesort._check_fanout(16) == 16
+
+
+def _reference_passes(np2: int, fanout: int):
+    """The reference's passes, as its sort loops over them (width 1 up)."""
+    passes, width = [], 1
+    while width < np2:
+        group = min(fanout, np2 // width)
+        passes.append((np2 // (group * width), group, width))
+        width *= group
+    return passes
+
+
+@pytest.mark.parametrize("fanout", [2, 4, 8, 16])
+def test_sort_plan_is_a_leaf_then_the_reference_passes_above_it(fanout):
+    """The plan: one leaf pass of s = min(LEAF_WIDTH, np2) runs of width 1,
+    then exactly the reference's passes from width s up (s is a power of
+    every fan-out here, so the reference's widths reach it)."""
+    from repro_torch.kernels.merge import GROUPS_TILE
+
+    assert mergesort.LEAF_WIDTH <= GROUPS_TILE
+    assert mergesort.LEAF_WIDTH & (mergesort.LEAF_WIDTH - 1) == 0
+    sizes = [1, 2, 3, 5, 17, 100, 128, 4095, 4096, 4097, 5000, 1 << 15,
+             (1 << 15) + 1, 100_003, 1 << 24]
+    for n in sizes:
+        plan = mergesort.sort_plan(n, fanout)
+        if n <= 1:
+            assert plan == []
+            continue
+        np2 = mergesort._padded_pow2(n)
+        s = min(mergesort.LEAF_WIDTH, np2)
+        assert plan[0] == (np2 // s, s, 1)
+        assert plan[1:] == [p for p in _reference_passes(np2, fanout)
+                            if p[2] >= s]
+        for g, k, w in plan:
+            assert g * k * w == np2
+
+
+def test_sort_plan_counts_of_the_main_path():
+    """The dispatch sort of 32,768 assignments is a leaf and two wide
+    passes; a 2^24-key spill sort a leaf and six; a top-k block of 128 one
+    leaf; the default fan-out is the reference's."""
+    assert mergesort.sort_plan(32768) == [(8, 4096, 1), (2, 4, 4096),
+                                          (1, 2, 16384)]
+    assert len(mergesort.sort_plan(1 << 24)) == 1 + 6
+    assert mergesort.sort_plan(128) == [(1, 128, 1)]
+    assert mergesort.sort_plan(5, 0) == mergesort.sort_plan(5, 4)
+    with pytest.raises(ValueError, match="power of two"):
+        mergesort.sort_plan(10, 3)
+
+
+@pytest.mark.parametrize("g,k,w", [(5, 4096, 1), (3, 7, 5), (2, 3, 1000),
+                                   (4, 1, 9), (2, 64, 3)])
+def test_merge_runs_plain_tree_matches_reference(g, k, w):
+    """The torch-ops merge as a tree of pairwise rank merges (an odd run
+    passing through a level, padded with the sentinel) against a stable
+    numpy sort and, up to 64 runs (its compile grows with k^2), the
+    reference's rank merge, with dtype-max keys among the real ones."""
+    rng = np.random.default_rng(g * k + w)
+    keys = np.sort(rng.integers(-3, 3, (g, k, w)), axis=2).astype(np.int32)
+    keys[..., -1:] = np.iinfo(np.int32).max
+    vals = rng.integers(0, 1 << 20, (g, k, w)).astype(np.int32)
+    gk, gv = mergesort.merge_runs_plain(torch.from_numpy(keys),
+                                        torch.from_numpy(vals))
+    if k <= 64:
+        wk, wv = jax.jit(ref_ms.merge_runs_ranked)(jnp.asarray(keys),
+                                                   jnp.asarray(vals))
+        np.testing.assert_array_equal(gk.numpy(), np.asarray(wk))
+        np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
+    order = np.argsort(keys.reshape(g, -1), axis=1, kind="stable")
+    np.testing.assert_array_equal(gk.numpy(), np.take_along_axis(
+        keys.reshape(g, -1), order, 1))
+    np.testing.assert_array_equal(gv.numpy(), np.take_along_axis(
+        vals.reshape(g, -1), order, 1))
