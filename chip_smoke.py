@@ -11,18 +11,24 @@ full data size through the entry points a user calls:
 
 1. build         — compile the kernels, report ptxas' registers and spills;
 2. merge         — ``ops.stable_merge`` of m = n = 2^27 int32 and float32
-                   keys and m = n = 2^26 bfloat16 keys (``merge_tile``);
+                   keys and m = n = 2^26 bfloat16 keys: one ``merge_tile``
+                   launch, whose blocks co-rank their own tiles (its cuts
+                   held bit for bit against ``co_rank_batch``'s);
 3. merge_kway    — ``ops.stable_merge_kway`` of (4, 2^24) and (16, 2^23)
-                   int32 and float32 runs (``merge_kway_tile``);
+                   int32 and float32 runs: one wide launch
+                   (``merge_kway_groups_wide``, g = 1), beside
+                   ``merge_kway_tile`` given phase-1 cuts of the same runs;
 4. merge_window  — ``ops.merge_window`` of an (8, 2^22) window with ragged
                    lengths (one row empty) and real dtype-max keys among the
                    dtype-max padding: int32 keys with an int32 payload, then
                    int64 keys with an int64 payload (the window
                    ``external_sort`` and ``external_argsort`` past 2^31 keys
-                   launch);
+                   launch), each one wide launch in the ragged form; then a
+                   (128, 2^20) window, past the wide launch's 64 runs:
+                   phase 1 in torch ops and ``merge_kway_tile``;
 5. external      — ``external_argsort`` of 2^27 duplicate-heavy int32 keys
                    (chunk 2^24, fanout 4, window 2^22: 8 runs, two merge
-                   passes, 64 windows through ``merge_kway_tile``), then
+                   passes, 64 windows, each one wide launch), then
                    ``external_sort`` of 11 * 2^21 int64 keys with an int64
                    payload (chunk 2^21, fanout 8, window 2^20: 11 runs, a
                    tail group of 3, 44 windows); every chunk's spill sort
@@ -31,7 +37,9 @@ full data size through the entry points a user calls:
                    grouped launch), and the spill sort of one chunk is
                    timed on the ``cuda`` and ``torch`` merge backends and
                    against ``torch.sort``, each of its launches held
-                   against its kernel's plain version;
+                   against its kernel's plain version; then
+                   ``sort_key_val`` of 2^22 + 3 keys at fan-out 128 (groups
+                   of 128 runs: sub-groups of 64 and their merge);
 6. serve         — the merge top-k of (16, 151936) float32 and bfloat16
                    logits (``batched_topk``, k 50, fanout 4: seven grouped
                    launches, the block sort in one), then ``DecodeEngine``
@@ -156,7 +164,12 @@ launches must be exactly what the sort plan (``core.mergesort.sort_plan``)
 gives for its sizes.  A guard counts every call of the torch-ops merge
 (``core.mergesort.merge_runs_plain``) on a CUDA tensor under the ``cuda``
 backend, in this process and in the distributed ranks: a phase with one
-fails; it holds each kernel's output against the
+fails.  A second guard counts the torch-ops phase 1 (``co_rank_batch``,
+``co_rank_kway_batch``) that the kernels' wrappers run on CUDA tensors:
+``merge_tile`` and the k-way merges of up to 64 runs co-rank inside the
+kernel, so a phase with one fails (the k = 128 window's route is the one
+that may, and is counted apart).  Each merge entry is one launch.  The
+script holds each kernel's output against the
 kernel's plain PyTorch version on the same inputs on the card (bit for
 bit: these are permutations, no arithmetic touches the values) and
 against ``torch.sort(stable=True)``.  A mismatch, a launch count of 0 or
@@ -171,8 +184,12 @@ over its 67 T/s of 32-bit operations outside the tensor cores.
 
 Each timed case's line also shows ``pr11_ms``, the time of the kernels'
 first design (tiles 1024 and 2048, one block per tile) for the same case,
-read from the "PR 11 ms" column of ``PERF.md``'s per-shape table where it
-has one; it was not measured by this run and stays out of the JSON lines.
+and ``pr20_entry_ms``, the entry's time before the kernels co-ranked their
+own tiles, read from the "PR 11 ms" and "PR 20 entry ms" columns of
+``PERF.md``'s per-shape table where it has them; they were not measured by
+this run and stay out of the JSON lines.  A merge case also records the
+kernel's device time (``device_ms``, ``torch.profiler``) and the entry's
+(``entry_ms``, CUDA events).
 
 The serve phase checks the top-k bit for bit: the kernel path against
 the plain path and both against ``torch.sort(-(x.float() + 0.0),
@@ -274,9 +291,9 @@ def log(msg: str) -> None:
 
 
 def recorded_ms(column: str) -> dict:
-    """{(kernel, case): ms} from the ``column`` of PERF.md's tables whose
-    first two cells are a kernel's name and a case as this script names
-    it; empty when there is no such file or column."""
+    """{case: ms} from the ``column`` of PERF.md's tables whose first two
+    cells are a kernel's name and a case as this script names it; empty
+    when there is no such file or column."""
     try:
         lines = (ROOT / "PERF.md").read_text().splitlines()
     except OSError:
@@ -290,7 +307,7 @@ def recorded_ms(column: str) -> dict:
             col = cells.index(column)
         elif col is not None and col < len(cells):
             try:
-                found[(cells[0], cells[1])] = float(cells[col])
+                found[cells[1]] = float(cells[col])
             except ValueError:
                 pass
     return found
@@ -308,21 +325,38 @@ def card_line() -> str:
         return f"nvidia-smi unavailable ({exc})"
 
 
+def pass_launches(g: int, k: int, w: int) -> dict:
+    """Launches of each grouped kernel that ``merge_runs_ranked`` makes on
+    the card for ``(g, k, w)`` groups: one grouped launch when a group fits
+    its tile, one wide launch up to ``WIDE_MAX_RUNS`` runs, and past that
+    the sub-groups and their merge of ``core.mergesort.merge_runs_split``."""
+    from repro_torch.kernels.merge import GROUPS_TILE, WIDE_MAX_RUNS
+
+    if k * w <= GROUPS_TILE:
+        return {"merge_kway_tile_groups": 1, "merge_kway_groups_wide": 0}
+    if k <= WIDE_MAX_RUNS:
+        return {"merge_kway_tile_groups": 0, "merge_kway_groups_wide": 1}
+    s = -(-k // WIDE_MAX_RUNS)
+    p = -(-k // s)
+    return add_launches(pass_launches(g * s, p, w), pass_launches(g, s, p * w))
+
+
 def plan_launches(n: int, fanout: int = 0) -> dict:
     """Launches of each grouped kernel that a sort of ``n`` keys makes on
-    the card: the passes of its plan (``core.mergesort.sort_plan``) whose
-    groups fit the grouped launch's tile, and the wider ones."""
+    the card: those of every pass of its plan (``core.mergesort.sort_plan``)."""
     from repro_torch.core.mergesort import sort_plan
-    from repro_torch.kernels.merge import GROUPS_TILE
 
-    plan = sort_plan(n, fanout)
-    grouped = sum(k * w <= GROUPS_TILE for _, k, w in plan)
-    return {"merge_kway_tile_groups": grouped,
-            "merge_kway_groups_wide": len(plan) - grouped}
+    return add_launches(*(pass_launches(*shape) for shape in sort_plan(n, fanout)))
 
 
 def add_launches(*counts) -> dict:
     return {name: sum(c.get(name, 0) for c in counts) for name in GROUPED}
+
+
+def wide_launches(n: int = 1) -> dict:
+    """``n`` wide launches: a merge entry or external window of up to
+    ``WIDE_MAX_RUNS`` runs is one."""
+    return {"merge_kway_tile_groups": 0, "merge_kway_groups_wide": n}
 
 
 class PlainGuard:
@@ -345,6 +379,32 @@ class PlainGuard:
             return real(keys, vals)
 
         mergesort.merge_runs_plain = guarded
+
+
+class PhaseOneGuard:
+    """Counts the calls of the torch-ops phase 1 (``co_rank_batch``,
+    ``co_rank_kway_batch``) that the kernels' wrappers make on CUDA tensors:
+    ``merge_tile`` and the k-way merges of up to ``WIDE_MAX_RUNS`` runs
+    co-rank inside the kernel, so only the route of more runs may make
+    them (``expected`` counts those; the script's own comparisons call the
+    functions by their ``core`` names, which are not counted)."""
+
+    def __init__(self, km):
+        self.calls = 0
+        self.allowed = False  # inside a case that takes the k > 64 route
+        self.expected = 0
+        for name in ("co_rank_batch", "co_rank_kway_batch"):
+            real = getattr(km, name)
+
+            def guarded(i, *args, _real=real, **kw):
+                if args[0].is_cuda:
+                    if self.allowed:
+                        self.expected += 1
+                    else:
+                        self.calls += 1
+                return _real(i, *args, **kw)
+
+            setattr(km, name, guarded)
 
 
 class Smoke:
@@ -374,7 +434,9 @@ class Smoke:
         self.launches = {name: 0 for name in KERNELS}
         self.failed = []
         self.pr11_ms = recorded_ms("PR 11 ms")
+        self.parent_entry_ms = recorded_ms("PR 20 entry ms")
         self.guard = PlainGuard()
+        self.phase1 = PhaseOneGuard(km)
 
     # -- helpers ------------------------------------------------------------
 
@@ -508,7 +570,8 @@ class Smoke:
         }
         self.cases[kernel].append(row)
         log(f"  {kernel} {case}: mismatches={mismatches} ms={ms:.4f} "
-            f"pr11_ms={self.pr11_ms.get((kernel, case), 'n/a')} "
+            f"pr11_ms={self.pr11_ms.get(case, 'n/a')} "
+            f"pr20_entry_ms={self.parent_entry_ms.get(case, 'n/a')} "
             f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
             f"bound_ms={bound_ms:.4f} "
             + " ".join(f"{k}={v}" for k, v in extra.items()))
@@ -538,56 +601,67 @@ class Smoke:
                 + "".join(f"\n    spills: {s}" for s in spilled))
             self.build_mod.load(name)
 
+    def expect_one(self, name: str, what: str) -> None:
+        """Fail unless the call just made launched ``name`` once and no
+        other kernel."""
+        got = self.read_launches()
+        want = {k: int(k == name) for k in KERNELS}
+        if got != want:
+            raise AssertionError(f"{what}: launches {got}, expected {want}")
+
     def phase_merge(self) -> None:
         torch, km, ops = self.torch, self.km, self.ops
         tile = km.MERGE_TILE
-        log(f"phase merge: ops.stable_merge -> merge_tile (tile {tile})")
+        log(f"phase merge: ops.stable_merge -> merge_tile (tile {tile}; the "
+            f"kernel co-ranks its own tiles)")
         for kind, log2n in (("int32", 27), ("float32", 27), ("bfloat16", 26)):
             n = self.count(log2n, f"merge {kind} m = n")
             a = self.sorted_keys(kind, (n,))
             b = self.sorted_keys(kind, (n,))
             self.reset()
             out = ops.stable_merge(a, b)
-            launched = self.read_launches()["merge_tile"]
-            if launched != 1:
-                raise AssertionError(f"merge_tile launched {launched} times")
+            self.expect_one("merge_tile", f"merge {kind}")
+            # the kernel's own cuts against phase 1 in torch ops, bit for bit
             bounds = km.tile_bounds(2 * n, tile, self.dev)
             cr = self.co_rank_batch(bounds, a, b)
+            again, jb, kb = km.merge_tile(a, b, cuts=True)
+            cut_mm = self.mismatch(jb, cr.j)[0] + self.mismatch(kb, cr.k)[0]
             plain = km.merge_tile_plain(a, b, cr.j, cr.k)
             ab = torch.cat([a, b])
             lib = torch.sort(ab, stable=True).values
             mm, err = self.mismatch(out, plain)
+            mm += self.mismatch(again, out)[0]
             mm_lib, _ = self.mismatch(out, lib)
-            if mm_lib:
-                raise AssertionError(f"merge {kind}: {mm_lib} differ from torch.sort")
+            if mm_lib or cut_mm:
+                raise AssertionError(f"merge {kind}: {mm_lib} differ from "
+                                     f"torch.sort, {cut_mm} cuts from co_rank_batch")
             self.record(
                 "merge_tile", f"{kind} m=n=2^{log2n - self.cut}",
                 mismatches=mm, max_abs_err=err,
-                ms=self.timed_ms(lambda: km.merge_tile(a, b, cr.j, cr.k), 10),
-                plain_ms=self.timed_ms(lambda: km.merge_tile_plain(a, b, cr.j, cr.k)),
+                ms=self.timed_ms(lambda: km.merge_tile(a, b), 10),
+                plain_ms=self.timed_ms(lambda: (
+                    km.merge_tile_plain(a, b, *self.co_rank_batch(bounds, a, b)[:2]))),
                 library_ms=self.timed_ms(lambda: torch.sort(ab, stable=True)),
                 nbytes=2 * 2 * n * a.element_size(), ops=2 * n,
                 entry_ms=self.timed_ms(lambda: ops.stable_merge(a, b)),
-                phase1_ms=self.timed_ms(lambda: self.co_rank_batch(bounds, a, b)),
+                device_ms=self.kernel_device_ms(lambda: km.merge_tile(a, b)),
+                cut_mismatches=cut_mm, tiles=bounds.numel() - 1,
             )
-            del a, b, ab, out, plain, lib, cr
+            del a, b, ab, out, again, plain, lib, cr, jb, kb
 
     def phase_merge_kway(self) -> None:
         torch, km, ops = self.torch, self.km, self.ops
-        tile = km.KWAY_TILE
-        log(f"phase merge_kway: ops.stable_merge_kway -> merge_kway_tile (tile {tile})")
+        tile = km.WIDE_TILE
+        log(f"phase merge_kway: ops.stable_merge_kway -> merge_kway_groups_wide "
+            f"(g = 1, tile {tile}; the kernel co-ranks its own tiles)")
         for k, log2w in ((4, 24), (16, 23)):
             for kind in ("int32", "float32"):
                 w = self.count(log2w, f"merge_kway k={k} {kind} w")
                 runs = self.sorted_keys(kind, (k, w))
                 self.reset()
                 out = ops.stable_merge_kway(runs)
-                launched = self.read_launches()["merge_kway_tile"]
-                if launched != 1:
-                    raise AssertionError(f"merge_kway_tile launched {launched} times")
-                bounds = km.tile_bounds(k * w, tile, self.dev)
-                cb = self.co_rank_kway_batch(bounds, runs)
-                plain = km.merge_kway_tile_plain(runs, cb, out_len=k * w)
+                self.expect_one("merge_kway_groups_wide", f"merge_kway k={k} {kind}")
+                plain = km.merge_kway_groups_wide_plain(runs[None])[0][0]
                 ranked = self.merge_kway_ranked(runs)
                 lib = torch.sort(runs.reshape(-1), stable=True).values
                 mm, err = self.mismatch(out, plain)
@@ -595,37 +669,49 @@ class Smoke:
                     bad, _ = self.mismatch(out, other)
                     if bad:
                         raise AssertionError(f"merge_kway k={k} {kind}: {bad} differ from {label}")
-                del ranked, lib
+                del ranked, lib, plain
+                # the same merge by merge_kway_tile from phase-1 cuts (the
+                # route of more than 64 runs): its kernel time
+                cb = self.co_rank_kway_batch(km.tile_bounds(k * w, km.KWAY_TILE, self.dev), runs)
                 self.record(
-                    "merge_kway_tile", f"keys {kind} k={k} w=2^{log2w - self.cut}",
+                    "merge_kway_groups_wide", f"keys {kind} k={k} w=2^{log2w - self.cut}",
                     mismatches=mm, max_abs_err=err,
-                    ms=self.timed_ms(lambda: km.merge_kway_tile(runs, cb, out_len=k * w), 10),
-                    plain_ms=self.timed_ms(lambda: km.merge_kway_tile_plain(runs, cb, out_len=k * w)),
+                    ms=self.timed_ms(lambda: km.merge_kway_groups_wide(runs[None]), 10),
+                    plain_ms=self.timed_ms(lambda: km.merge_kway_groups_wide_plain(runs[None])),
                     library_ms=self.timed_ms(lambda: torch.sort(runs.reshape(-1), stable=True)),
                     nbytes=2 * k * w * runs.element_size(),
                     ops=k * w * (k.bit_length() - 1),
                     entry_ms=self.timed_ms(lambda: ops.stable_merge_kway(runs)),
-                    phase1_ms=self.timed_ms(lambda: self.co_rank_kway_batch(bounds, runs)),
+                    device_ms=self.kernel_device_ms(lambda: km.merge_kway_groups_wide(runs[None])),
+                    given_cuts_ms=self.timed_ms(
+                        lambda: km.merge_kway_tile(runs, cb, out_len=k * w), 10),
                 )
-                del runs, out, plain, cb
+                del runs, out, cb
 
     def phase_merge_window(self) -> None:
         torch = self.torch
-        log(f"phase merge_window: ops.merge_window -> merge_kway_tile "
-            f"(k 8, tile {self.km.KWAY_TILE})")
+        log(f"phase merge_window: ops.merge_window -> merge_kway_groups_wide "
+            f"(k 8, ragged lengths) and, at k 128, phase 1 + merge_kway_tile "
+            f"(tile {self.km.KWAY_TILE})")
         self.window_case(torch.int32, torch.int32, 1 << 20)
         # Keys above the int32 range, as the external sort's int64 keys.
         self.window_case(torch.int64, torch.int64, 1 << 40)
+        # More runs than the wide launch takes: phase 1 in torch ops, then
+        # merge_kway_tile given the cuts.
+        self.window_case(torch.int32, torch.int32, 1 << 20, k=128, log2w=20)
 
-    def window_case(self, key_dtype, val_dtype, spread: int) -> None:
-        """One (8, 2^22) window: ragged lengths summing to the window with
-        row 3 empty, keys in [0, spread) with real dtype-max keys among the
-        dtype-max padding, and the payload numbering the real elements."""
+    def window_case(self, key_dtype, val_dtype, spread: int, *, k: int = 8,
+                    log2w: int = 22) -> None:
+        """One (k, 2^log2w) window, as the external sort stages it: ragged
+        lengths summing to the window with row 3 empty, keys in [0, spread)
+        with real dtype-max keys among the dtype-max padding, and the
+        payload numbering the real elements."""
         torch, km, ops, g, dev = self.torch, self.km, self.ops, self.gen, self.dev
-        k = 8
-        win = self.count(22, f"merge_window {key_dtype} window")
+        win = self.count(log2w, f"merge_window {key_dtype} k={k} window")
+        out_len = win
         kmax = torch.iinfo(key_dtype).max
-        cuts = torch.sort(torch.randint(0, win + 1, (k - 2,), generator=g, device=dev)).values
+        cuts = torch.sort(torch.randint(0, win + 1, (k - 2,), generator=g,
+                                        device=dev)).values
         edges = torch.cat([cuts.new_zeros(1), cuts, cuts.new_full((1,), win)])
         lengths = torch.diff(edges)
         lengths = torch.cat([lengths[:3], lengths.new_zeros(1), lengths[3:]]).to(torch.int32)
@@ -639,43 +725,101 @@ class Smoke:
         starts = torch.cumsum(lengths, 0) - lengths
         vals = torch.where(real, starts[:, None] + col[None, :], -1).to(val_dtype)
         total = int(lengths.sum())
-        self.reset()
-        mk, mv = ops.merge_window(runs, vals, lengths, out_len=win)
-        launched = self.read_launches()["merge_kway_tile"]
-        if launched != 1:
-            raise AssertionError(f"merge_kway_tile launched {launched} times")
-        bounds = km.tile_bounds(win, km.KWAY_TILE, dev)
-        cb = self.co_rank_kway_batch(bounds, runs, lengths)
-        pk, pv = km.merge_kway_tile_plain(runs, cb, vals=vals, out_len=win)
-        rk, rv = self.merge_kway_ranked(runs, vals, lengths, out_len=win)
-        flat = runs[real]
-        lib = torch.sort(flat, stable=True)
-        mm_k, err_k = self.mismatch(mk[:total], pk[:total])
-        mm_v, err_v = self.mismatch(mv[:total], pv[:total])
-        for (ok_k, ok_v), label in (((rk, rv), "merge_kway_ranked"),
-                                    ((lib.values, lib.indices.to(val_dtype)), "torch.sort")):
-            bad = self.mismatch(mk[:total], ok_k[:total])[0] + self.mismatch(mv[:total], ok_v[:total])[0]
-            if bad:
-                raise AssertionError(f"merge_window {key_dtype}: {bad} differ from {label}")
-        kind = str(key_dtype).removeprefix("torch.")
-        self.record(
-            "merge_kway_tile", f"window payload+lengths {kind} k={k} w=2^{22 - self.cut}",
-            mismatches=mm_k + mm_v, max_abs_err=max(err_k, err_v),
-            ms=self.timed_ms(lambda: km.merge_kway_tile(runs, cb, vals=vals, out_len=win), 10),
-            plain_ms=self.timed_ms(lambda: km.merge_kway_tile_plain(runs, cb, vals=vals, out_len=win)),
-            library_ms=self.timed_ms(lambda: torch.sort(flat, stable=True)),
-            nbytes=2 * total * (runs.element_size() + vals.element_size()),
-            ops=total * (k.bit_length() - 1),
-            entry_ms=self.timed_ms(lambda: ops.merge_window(runs, vals, lengths, out_len=win)),
-            phase1_ms=self.timed_ms(lambda: self.co_rank_kway_batch(bounds, runs, lengths)),
-            real_total=total, lengths=lengths.tolist(),
-        )
+        wide = k <= km.WIDE_MAX_RUNS
+        kernel = "merge_kway_groups_wide" if wide else "merge_kway_tile"
+        self.phase1.allowed = not wide
+        try:
+            self.reset()
+            mk, mv = ops.merge_window(runs, vals, lengths, out_len=out_len)
+            self.expect_one(kernel, f"merge_window {key_dtype} k={k}")
+            expected_phase1 = self.phase1.expected
+            bounds = km.tile_bounds(out_len, km.KWAY_TILE, dev)
+            cb = self.co_rank_kway_batch(bounds, runs, lengths)
+            if wide:
+                pk, pv = (x[0] for x in km.merge_kway_groups_wide_plain(
+                    runs[None], vals[None], lengths[None], out_len=out_len))
+                kernel_fn = lambda: km.merge_kway_groups_wide(  # noqa: E731
+                    runs[None], vals[None], lengths[None], out_len=out_len)
+                plain_fn = lambda: km.merge_kway_groups_wide_plain(  # noqa: E731
+                    runs[None], vals[None], lengths[None], out_len=out_len)
+            else:
+                pk, pv = km.merge_kway_tile_plain(runs, cb, vals=vals, out_len=out_len)
+                kernel_fn = lambda: km.merge_kway_tile(  # noqa: E731
+                    runs, cb, vals=vals, out_len=out_len)
+                plain_fn = lambda: km.merge_kway_tile_plain(  # noqa: E731
+                    runs, cb, vals=vals, out_len=out_len)
+            flat = runs[real]
+            lib = torch.sort(flat, stable=True)
+            mm_k, err_k = self.mismatch(mk[:total], pk[:total])
+            mm_v, err_v = self.mismatch(mv[:total], pv[:total])
+            others = [((lib.values, lib.indices.to(val_dtype)), "torch.sort")]
+            if wide:  # the rank merge's k^2 searches: up to 64 runs
+                others.append((self.merge_kway_ranked(runs, vals, lengths, out_len=out_len),
+                               "merge_kway_ranked"))
+            for (ok_k, ok_v), label in others:
+                bad = self.mismatch(mk[:total], ok_k[:total])[0] + self.mismatch(mv[:total], ok_v[:total])[0]
+                if bad:
+                    raise AssertionError(f"merge_window {key_dtype} k={k}: {bad} differ from {label}")
+            del pk, pv, others
+            kind = str(key_dtype).removeprefix("torch.")
+            extra = {} if wide else {"phase1_calls": expected_phase1, "phase1_ms": self.timed_ms(
+                lambda: self.co_rank_kway_batch(bounds, runs, lengths))}
+            self.record(
+                kernel, f"window payload+lengths {kind} k={k} w=2^{log2w - self.cut}",
+                mismatches=mm_k + mm_v, max_abs_err=max(err_k, err_v),
+                ms=self.timed_ms(kernel_fn, 10),
+                plain_ms=self.timed_ms(plain_fn),
+                library_ms=self.timed_ms(lambda: torch.sort(flat, stable=True)),
+                nbytes=2 * total * (runs.element_size() + vals.element_size()),
+                ops=total * (k.bit_length() - 1),
+                entry_ms=self.timed_ms(lambda: ops.merge_window(runs, vals, lengths, out_len=out_len)),
+                device_ms=self.kernel_device_ms(kernel_fn),
+                real_total=total, lengths=lengths.tolist()[:16], **extra,
+            )
+        finally:
+            self.phase1.allowed = False
+        if not wide:
+            log(f"  merge_window k={k}: the route of more than {km.WIDE_MAX_RUNS} "
+                f"runs ran phase 1 in torch ops {expected_phase1} time(s) a call, "
+                f"as it should (not counted by the phase-1 guard)")
 
     def phase_external(self) -> None:
         self.external_run(27, chunk_log2=24, fanout=4, window_log2=22,
                           wide=False)
         self.external_run(21, chunk_log2=21, fanout=8, window_log2=20,
                           wide=True, runs=11)
+        self.sort_fanout_128()
+
+    def sort_fanout_128(self) -> None:
+        """``sort_key_val`` of 2^22 + 3 int32 keys (real int32 max among
+        them) with an int32 payload at fan-out 128: its fan-out pass merges
+        groups of 128 runs of 4096, past the wide launch's 64 runs, as two
+        sub-groups and their merge; launches exactly the plan's, every one
+        held against its plain version, the result against ``torch.sort``."""
+        torch = self.torch
+        n = self.count(22, "sort fanout 128 n") + 3
+        x = torch.randint(0, 1 << 20, (n,), generator=self.gen, device=self.dev,
+                          dtype=torch.int32)
+        x[x >= (1 << 20) - 64] = torch.iinfo(torch.int32).max
+        idx = torch.arange(n, device=self.dev, dtype=torch.int32)
+        plan = self.sort_plan(n, 128)
+        log(f"phase external: sort_key_val at fan-out 128, n={n}, plan {plan}")
+        with _CheckedKernels(torch, self.km) as ck:
+            got_k, got_v = self.sort_key_val(x, idx, fanout=128)
+            launched = ck.launches()
+        for name, c in launched.items():
+            self.launches[name] += c
+        self.expect_launches("sort_key_val fanout 128", launched, plan_launches(n, 128))
+        want = torch.sort(x, stable=True)
+        bad = self.mismatch(got_k, want.values)[0] + self.mismatch(
+            got_v, want.indices.to(torch.int32))[0]
+        log(f"  sort_key_val fanout 128: {bad} differ from torch.sort; "
+            f"launches held against their plain versions {ck.checked}, "
+            f"mismatches {ck.mismatches}; call "
+            f"{self.timed_ms(lambda: self.sort_key_val(x, idx, fanout=128)):.4f} ms, "
+            f"torch.sort {self.timed_ms(lambda: torch.sort(x, stable=True)):.4f} ms")
+        if bad or any(ck.mismatches.values()):
+            raise AssertionError(f"sort fanout 128: {bad} differ, {ck.mismatches}")
 
     def external_run(self, log2n: int, *, chunk_log2: int, fanout: int,
                      window_log2: int, wide: bool, runs: int = 0) -> None:
@@ -718,10 +862,9 @@ class Smoke:
                 del order
             secs = time.perf_counter() - t0
         launched = self.read_launches()
-        if launched["merge_kway_tile"] != expect_windows:
-            raise AssertionError(
-                f"merge_kway_tile launched {launched['merge_kway_tile']} "
-                f"times, expected {expect_windows}")
+        if launched["merge_kway_tile"] or launched["merge_tile"]:
+            raise AssertionError(f"external: launches {launched}: every window "
+                                 f"is a wide launch")
         want = torch.sort(keys_dev, stable=True)
         bad, _ = self.mismatch(got, want.indices.to(got.dtype))
         if wide:
@@ -729,17 +872,20 @@ class Smoke:
         gaps = [b - a for a, b in zip(stamps, stamps[1:])]
         log(f"  {what}: {secs:.3f} s wall, "
             f"{n / secs / 1e6:.2f} Melem/s, {bad} mismatches vs torch.sort, "
-            f"merge_kway_tile launches {launched['merge_kway_tile']}, "
-            f"grouped launches (spill sort) "
-            f"{launched['merge_kway_tile_groups']}; "
+            f"wide launches (windows and spill sorts) "
+            f"{launched['merge_kway_groups_wide']}, grouped launches (spill "
+            f"sort) {launched['merge_kway_tile_groups']}; "
             f"spill phase + first window {stamps[0] - t0:.3f} s, "
             f"median window {statistics.median(gaps):.4f} s, "
             f"last window to return {secs - (stamps[-1] - t0):.3f} s")
         if bad:
             raise AssertionError(f"{what}: {bad} mismatches")
-        # Every chunk's spill sort: its plan's leaf and wide passes.
-        self.expect_launches(f"{what} spill sorts", launched, add_launches(
-            *(plan_launches(min(chunk, n - lo)) for lo in range(0, n, chunk))))
+        # Every chunk's spill sort (its plan's leaf and wide passes) and one
+        # wide launch a window.
+        self.expect_launches(f"{what} spill sorts and {expect_windows} windows",
+                             launched, add_launches(
+            *(plan_launches(min(chunk, n - lo)) for lo in range(0, n, chunk)),
+            wide_launches(expect_windows)))
         # The spill sort of one chunk on each merge backend: every pass a
         # kernel (cuda) or in torch ops (torch); torch.sort of the same keys;
         # its bound, one read and one write of the chunk's keys (and payload).
@@ -1683,7 +1829,7 @@ class Smoke:
     def train_external(self, first_loss: float) -> None:
         """(b) The out-of-core bucketing: a window of 64 documents past
         ``--external-threshold 32`` spills two runs and merges them in
-        windows through ``merge_kway_tile``; the packed batch equals the
+        windows through the wide launch; the packed batch equals the
         in-memory one bit for bit, and the launcher's first step on it
         gives the in-memory run's first loss."""
         from repro_torch.configs.registry import ARCHS
@@ -1705,12 +1851,12 @@ class Smoke:
             res = launcher.main(self.train_argv(
                 "--steps", "1", "--external-threshold", "32",
                 "--external-workdir", tmp))
-        log(f"  train --external-threshold 32: {launched['merge_kway_tile']} "
-            f"merge_kway_tile and {launched['merge_kway_tile_groups']} grouped "
+        log(f"  train --external-threshold 32: {launched['merge_kway_groups_wide']} "
+            f"wide and {launched['merge_kway_tile_groups']} grouped "
             f"launches for one window; packed batch differs from the in-memory "
             f"one in {bad} elements; launcher step loss "
             f"{res['losses'][0]:.6f} (in-memory run {first_loss:.6f})")
-        if bad or launched["merge_kway_tile"] == 0 or not \
+        if bad or launched["merge_kway_groups_wide"] == 0 or not \
                 abs(res["losses"][0] - first_loss) <= 1e-5 * first_loss:
             raise AssertionError(f"train external: {bad} differ, launches "
                                  f"{launched}, losses {res['losses']}")
@@ -1885,16 +2031,21 @@ class Smoke:
         if any(compiled):
             bad.append("a rank compiled a kernel")
         totals = {name: [0, 0, 0] for name in KERNELS}  # launches, checked, mismatches
-        uses = {"sort": ("merge_kway_tile", "merge_kway_tile_groups"),
-                "truncation": ("merge_kway_tile",),
-                "sharded_sort_host": ("merge_kway_tile", "merge_kway_tile_groups"),
+        uses = {"sort": ("merge_kway_groups_wide", "merge_kway_tile_groups"),
+                "truncation": ("merge_kway_groups_wide",),
+                "sharded_sort_host": ("merge_kway_groups_wide", "merge_kway_tile_groups"),
                 "merge": ("merge_tile",),
-                "moe": ("merge_kway_tile", "merge_kway_tile_groups")}
+                "moe": ("merge_kway_groups_wide", "merge_kway_tile_groups")}
         plain_calls = [rep["plain_calls"] for rep in reps]
+        phase1_calls = [rep["phase1_calls"] for rep in reps]
         log(f"  guard: merge_runs_plain ran {plain_calls} times on CUDA tensors "
             f"under the cuda backend in the ranks (must be 0)")
+        log(f"  guard: torch-ops phase 1 ran {phase1_calls} times on CUDA "
+            f"tensors in the kernels' wrappers in the ranks (must be 0)")
         if any(plain_calls):
             bad.append("merge_runs_plain ran on the card in a rank")
+        if any(phase1_calls):
+            bad.append("phase 1 ran in torch ops on the card in a rank")
         for case in reps[0]["cases"]:
             rows = [rep["cases"][case] for rep in reps]
             per = {key: [_rounded(row.get(key)) for row in rows] for key in rows[0]}
@@ -2285,8 +2436,9 @@ class Smoke:
             self.reset()
             ep, plan = D.dropless_moe_ffn(xt, experts, wts, wg, wu, wd, n_exp, g)
             moe_launches = self.read_launches()
+            # the dispatch sort's plan, and the ragged merge's wide launch
             self.expect_launches("distributed nccl dropless_moe_ffn", moe_launches,
-                                 plan_launches(t * k))
+                                 add_launches(plan_launches(t * k), wide_launches()))
             params = {"w_gate": wg, "w_up": wu, "w_down": wd}
             local = _dropless_moe(params, xt, wts, experts, n_exp, k)
         finally:
@@ -2370,10 +2522,15 @@ class _CheckedKernels:
     def __enter__(self):
         km, real = self.km, self.real
 
-        def merge_tile(a, b, jb, kb):
-            out = real["merge_tile"](a, b, jb, kb)
-            self._tally("merge_tile", [(out, km.merge_tile_plain(a, b, jb, kb))])
-            return out
+        def merge_tile(a, b, *, cuts=False):
+            from repro_torch.core.corank import co_rank_batch
+
+            out = real["merge_tile"](a, b, cuts=True)
+            cr = co_rank_batch(km.tile_bounds(a.numel() + b.numel(), km.MERGE_TILE,
+                                              a.device), a, b)
+            self._tally("merge_tile", [(out[0], km.merge_tile_plain(a, b, cr.j, cr.k)),
+                                       (out[1], cr.j), (out[2], cr.k)])
+            return out if cuts else out[0]
 
         def merge_kway_tile(runs, cb, *, vals=None, out_len):
             out = real["merge_kway_tile"](runs, cb, vals=vals, out_len=out_len)
@@ -2390,11 +2547,18 @@ class _CheckedKernels:
                         [p for p in zip(out, want) if p[0] is not None])
             return out
 
-        def merge_kway_groups_wide(keys, vals=None):
-            out = real["merge_kway_groups_wide"](keys, vals)
-            want = km.merge_kway_groups_wide_plain(keys, vals)
-            self._tally("merge_kway_groups_wide",
-                        [p for p in zip(out, want) if p[0] is not None])
+        def merge_kway_groups_wide(keys, vals=None, lengths=None, *, out_len=None):
+            out = real["merge_kway_groups_wide"](keys, vals, lengths, out_len=out_len)
+            want = km.merge_kway_groups_wide_plain(keys, vals, lengths, out_len=out_len)
+            pairs = [p for p in zip(out, want) if p[0] is not None]
+            if lengths is not None:  # past a group's real total: unspecified
+                torch = self.torch
+                width = out[0].shape[1]
+                keep = torch.arange(width, device=keys.device) < torch.clamp(
+                    lengths.sum(dim=1, keepdim=True), max=width)
+                pairs = [(torch.where(keep, a, 0), torch.where(keep, b, 0))
+                         for a, b in pairs]
+            self._tally("merge_kway_groups_wide", pairs)
             return out
 
         for fn in (merge_tile, merge_kway_tile, merge_kway_tile_groups,
@@ -2449,6 +2613,7 @@ class _DistRank:
         for name in _build.SOURCES:
             _build.load(name)
         self.guard = PlainGuard()
+        self.phase1 = PhaseOneGuard(km)
 
     # -- helpers --------------------------------------------------------------
 
@@ -2601,7 +2766,8 @@ class _DistRank:
                     lambda: D.sharded_sort(shard, g, strategy=strategy))
                 fields = dict(differ=_bit_mismatches(torch, out, want_k),
                               launches=launches, checked=checked, mismatches=mm,
-                              expect=plan_launches(w), wire=self.collectives(recs))
+                              expect=add_launches(plan_launches(w), wide_launches()),
+                              wire=self.collectives(recs))
                 if strategy == "exchange":
                     fields["padding_slots"] = int(self.gauge(recs, "exchange.padding_slots"))
                     keys, idx = sort_key_val(shard, gidx)
@@ -2659,7 +2825,7 @@ class _DistRank:
         planned = cuts[1] - cuts[0]
         kept = int(lengths.sum())
         self.case("truncation sorted capacity w/2", launches=launches, checked=checked,
-                  mismatches=mm, expect=add_launches(),
+                  mismatches=mm, expect=wide_launches(),
                   dropped=int((planned - lengths).sum()),
                   expected_dropped=shard.shape[0] - kept,
                   clipped=bool(torch.equal(lengths, torch.clamp(planned, max=cap))),
@@ -2677,7 +2843,7 @@ class _DistRank:
             lambda: self.D.sharded_sort_host(x))
         self.case("sharded_sort_host", n=n, differ=_bit_mismatches(torch, out, want),
                   launches=launches, checked=checked, mismatches=mm,
-                  expect=plan_launches(-(-n // self.p)),
+                  expect=add_launches(plan_launches(-(-n // self.p)), wide_launches()),
                   wire=self.collectives(recs),
                   ms=self.wall_ms(lambda: self.D.sharded_sort_host(x), 2))
 
@@ -2756,7 +2922,7 @@ class _DistRank:
             # every expert); the other ranks free their share first
             outs = C.all_gather(out, g).reshape(t, d)
             fields = dict(launches=launches, checked=checked, mismatches=mm,
-                          expect=plan_launches(n),
+                          expect=add_launches(plan_launches(n), wide_launches()),
                           overflow=overflow, plan_differ=plan_differ,
                           wire=self.collectives(recs),
                           rows_received=int(plan.recv_lengths.sum()),
@@ -2824,6 +2990,7 @@ class _DistRank:
             case()
             self.report.setdefault("seconds", {})[case.__name__] = time.perf_counter() - t0
         self.report["plain_calls"] = self.guard.calls
+        self.report["phase1_calls"] = self.phase1.calls
         return self.report
 
 
@@ -3113,7 +3280,7 @@ def main() -> int:
         phases = [ph for ph in phases if ph.__name__ in keep]
     for phase in phases:
         t0 = time.perf_counter()
-        smoke.guard.calls = 0
+        smoke.guard.calls = smoke.phase1.calls = 0
         try:
             phase()
         except Exception:  # a failed phase fails the run, after the others
@@ -3122,8 +3289,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         log(f"  guard: merge_runs_plain ran {smoke.guard.calls} times on CUDA "
             f"tensors under the cuda backend in {phase.__name__} (must be 0)")
+        log(f"  guard: torch-ops phase 1 ran {smoke.phase1.calls} times on CUDA "
+            f"tensors in the kernels' wrappers in {phase.__name__} (must be 0)")
         if smoke.guard.calls:
             smoke.failed.append(f"{phase.__name__}: merge_runs_plain on the card")
+        if smoke.phase1.calls:
+            smoke.failed.append(f"{phase.__name__}: phase 1 in torch ops on the card")
         log(f"  ({phase.__name__} took {time.perf_counter() - t0:.1f} s)")
     for name, n in smoke.launches.items():
         if n == 0 and not args.only:

@@ -15,7 +15,9 @@ which sorts to the tail and is sliced off.  The ``g`` groups of a pass are
 a leading batch dimension.  Both backends run the same plan.  On the card
 every pass is a kernel (:func:`merge_runs_ranked`): groups that fit one
 tile of the grouped launch go to it, wider groups to the wide grouped
-launch, whose blocks co-rank their own tiles.
+launch, whose blocks co-rank their own tiles; a wide group of more runs
+than that launch takes is merged in sub-groups, then again
+(:func:`merge_runs_split`).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ __all__ = [
     "merge_runs_ranked",
     "merge_pairs_ranked",
     "merge_runs_plain",
+    "merge_runs_split",
     "sentinel_max",
     "sort_plan",
     "DEFAULT_FANOUT",
@@ -135,6 +138,44 @@ def _with_tail(merged: torch.Tensor, tail: torch.Tensor, w: int, fill):
     return torch.cat([merged, torch.cat([tail, pad], dim=2)], dim=1)
 
 
+def merge_runs_split(keys: torch.Tensor, vals: torch.Tensor | None, merge,
+                     limit: int):
+    """Merge groups of ``k > limit`` adjacent sorted runs with ``merge``,
+    which takes at most ``limit`` runs a group: ``keys`` ``(g, k, w)`` ->
+    ``(g, k*w)``, ``vals`` alike.
+
+    The ``k`` runs of a group split into ``s = ceil(k / limit)`` adjacent
+    sub-groups of ``p = ceil(k / s)`` runs; ``merge`` merges every
+    sub-group of every group in one call, and its ``s`` results, runs of
+    width ``p*w`` in order, are merged again the same way until one run is
+    left.  The ``s*p - k < p`` missing runs pad the last sub-group with
+    :func:`sentinel_max` runs (payload 0) after every real run, so a
+    sentinel loses every tie with a real dtype-max key, and the padding
+    ends the merge and is sliced off.  Stable, as every level keeps the
+    runs adjacent and in order and the lower sub-group wins ties.
+    """
+    g, k, w = keys.shape
+    s = -(-k // limit)
+    p = -(-k // s)
+    pad = s * p - k
+    if pad:
+        fill = torch.full((g, pad, w), sentinel_max(keys.dtype).item(),
+                          dtype=keys.dtype, device=keys.device)
+        keys = torch.cat([keys, fill], dim=1)
+        if vals is not None:
+            vals = torch.cat([vals, vals.new_zeros((g, pad, w))], dim=1)
+    out_k, out_v = merge(keys.reshape(g * s, p, w),
+                         None if vals is None else vals.reshape(g * s, p, w))
+    out_k = out_k.reshape(g, s, p * w)
+    out_v = None if out_v is None else out_v.reshape(g, s, p * w)
+    if s > limit:
+        out_k, out_v = merge_runs_split(out_k, out_v, merge, limit)
+    else:
+        out_k, out_v = merge(out_k, out_v)
+    out_k = out_k[:, :k * w].contiguous()
+    return out_k, (None if out_v is None else out_v[:, :k * w].contiguous())
+
+
 def merge_runs_ranked(keys: torch.Tensor, vals: torch.Tensor | None):
     """Merge groups of adjacent sorted runs: ``keys`` ``(g, k, w)`` with
     every ``keys[i, r]`` sorted -> ``(g, k*w)`` stably merged (lower ``r``
@@ -142,24 +183,33 @@ def merge_runs_ranked(keys: torch.Tensor, vals: torch.Tensor | None):
 
     The backend follows ``REPRO_TORCH_MERGE_BACKEND`` (``repro_torch.backend``;
     ``auto`` is ``cuda`` for CUDA tensors).  On ``cuda`` every shape runs
-    a kernel: groups that fit one tile (``k*w <= GROUPS_TILE``) go to the
+    kernels: groups that fit one tile (``k*w <= GROUPS_TILE``) go to the
     grouped launch (``kernels.merge.merge_kway_tile_groups``), wider ones
-    to the wide grouped launch (``kernels.merge.merge_kway_groups_wide``).
-    Each raises for what it does not take (a key dtype, too many runs);
-    neither gives way to torch ops.  The ``torch`` backends run
-    :func:`merge_runs_plain`.
+    to the wide grouped launch (``kernels.merge.merge_kway_groups_wide``),
+    and wider ones of more than ``WIDE_MAX_RUNS`` runs through
+    :func:`merge_runs_split`, each of whose merges takes the same route.
+    A kernel raises for what it does not take (a key dtype); none gives
+    way to torch ops.  The ``torch`` backends run :func:`merge_runs_plain`.
     """
     op = "merge_runs_ranked"
     keys = keys.contiguous()
     vals = None if vals is None else vals.contiguous()
     if dispatch(op, None, keys, vals) == "cuda":
-        # Imported here: kernels.merge imports this module.
-        from repro_torch.kernels import merge as km
-
-        if keys.shape[1] * keys.shape[2] <= km.GROUPS_TILE:
-            return km.merge_kway_tile_groups(keys, vals)
-        return km.merge_kway_groups_wide(keys, vals)
+        return _merge_runs_kernels(keys, vals)
     return merge_runs_plain(keys, vals)
+
+
+def _merge_runs_kernels(keys: torch.Tensor, vals: torch.Tensor | None):
+    """:func:`merge_runs_ranked` on the card's kernels."""
+    # Imported here: kernels.merge imports this module.
+    from repro_torch.kernels import merge as km
+
+    g, k, w = keys.shape
+    if k * w <= km.GROUPS_TILE:
+        return km.merge_kway_tile_groups(keys, vals)
+    if k <= km.WIDE_MAX_RUNS:
+        return km.merge_kway_groups_wide(keys, vals)
+    return merge_runs_split(keys, vals, _merge_runs_kernels, km.WIDE_MAX_RUNS)
 
 
 def merge_pairs_ranked(keys: torch.Tensor, vals: torch.Tensor | None):

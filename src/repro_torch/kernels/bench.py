@@ -22,10 +22,17 @@ The cases: the grouped launch at the shapes of the top-k's four block-sort
 passes before the block sort became one launch, at that one launch and at
 its rounds, the sort plan's leaf, two wide passes and ``merge_kway_tile``
 merging the same runs as the second from cuts given (what the wide
-launch's own co-rank adds), and whole sorts: the MoE dispatch sort of
+launch's own co-rank adds), whole sorts: the MoE dispatch sort of
 32,768 int32 keys with an int32 payload and the spill sort of a 2^24-key
-int32 chunk (``ops.stable_sort``).  A case whose groups exceed
-the grouped launch's tile in the checkout under test runs through
+int32 chunk (``ops.stable_sort``), and the three merge entries at
+``chip_smoke.py``'s shapes (``--entries`` runs only these):
+``ops.stable_merge`` of m = n = 2^27 int32 and 2^26 bfloat16 keys,
+``ops.stable_merge_kway`` of (4, 2^24) and (16, 2^23) int32 runs and
+``ops.merge_window`` of an (8, 2^22) window with ragged lengths (one row
+empty, dtype-max keys among the padding), int32 keys with an int32
+payload and int64 keys with an int64 payload; their ``sort_ms`` is
+``torch.sort(stable=True)`` of the same real keys.  A case whose groups
+exceed the grouped launch's tile in the checkout under test runs through
 ``merge_runs_ranked`` (the checkout's own route for it).
 """
 
@@ -80,6 +87,8 @@ def main(argv=None) -> int:
     parser.add_argument("--reps", type=int, default=20)
     parser.add_argument("--json", default="")
     parser.add_argument("--label", default="")
+    parser.add_argument("--entries", action="store_true",
+                        help="time only the three merge entries")
     args = parser.parse_args(argv)
     sys.path.insert(0, args.src)
     import torch
@@ -121,7 +130,54 @@ def main(argv=None) -> int:
                2 * keys.numel() * (keys.element_size() + 4),
                lambda: torch.sort(flat, dim=1, stable=True))
 
+    def sorted_keys(shape, dtype=torch.int32):
+        x = torch.randint(-(1 << 20), 1 << 20, shape, generator=gen, device=dev)
+        if dtype == torch.bfloat16:  # integer-valued: exact
+            x = torch.randint(-250, 250, shape, generator=gen, device=dev)
+        return torch.sort(x.to(dtype), dim=-1).values
+
+    def entries():
+        for kind, log2n in ((torch.int32, 27), (torch.bfloat16, 26)):
+            a, b = sorted_keys((1 << log2n,), kind), sorted_keys((1 << log2n,), kind)
+            ab = torch.cat([a, b])
+            report(f"ops.stable_merge {str(kind)[6:]} m=n=2^{log2n}",
+                   lambda: ops.stable_merge(a, b), 2 * ab.numel() * ab.element_size(),
+                   lambda: torch.sort(ab, stable=True))
+            del a, b, ab
+        for k, log2w in ((4, 24), (16, 23)):
+            runs = sorted_keys((k, 1 << log2w))
+            report(f"ops.stable_merge_kway int32 ({k},2^{log2w})",
+                   lambda: ops.stable_merge_kway(runs), 2 * runs.numel() * 4,
+                   lambda: torch.sort(runs.reshape(-1), stable=True))
+            del runs
+        k, w = 8, 1 << 22
+        for kd, spread in ((torch.int32, 1 << 20), (torch.int64, 1 << 40)):
+            kmax = torch.iinfo(kd).max
+            cuts = torch.sort(torch.randint(0, w + 1, (k - 2,), generator=gen,
+                                            device=dev)).values
+            edges = torch.cat([cuts.new_zeros(1), cuts, cuts.new_full((1,), w)])
+            lengths = torch.diff(edges)
+            lengths = torch.cat([lengths[:3], lengths.new_zeros(1),
+                                 lengths[3:]]).to(torch.int32)
+            real = torch.arange(w, device=dev)[None, :] < lengths[:, None]
+            keys = torch.randint(0, 1 << 20, (k, w), generator=gen, device=dev,
+                                 dtype=torch.int32).to(kd) * (spread >> 20)
+            keys[torch.rand((k, w), generator=gen, device=dev) < 0.05] = kmax
+            keys[~real] = kmax
+            runs = torch.sort(keys, dim=1).values
+            vals = torch.arange(k * w, device=dev).to(kd).reshape(k, w)
+            flat = runs[real]
+            name = str(kd)[6:]
+            report(f"ops.merge_window {name}+{name} (8,2^22) ragged",
+                   lambda: ops.merge_window(runs, vals, lengths, out_len=w),
+                   2 * flat.numel() * 2 * flat.element_size(),
+                   lambda: torch.sort(flat, stable=True))
+            del keys, runs, vals, flat
+
     with torch.no_grad():
+        if args.entries:
+            entries()
+            return _write(args.json, rows)
         for g, k, w in ((607744, 4, 1), (151936, 4, 4), (37984, 4, 16),
                         (18992, 2, 64), (18992, 128, 1), (4752, 4, 50),
                         (1200, 16, 50)):
@@ -148,8 +204,14 @@ def main(argv=None) -> int:
                               device=dev, dtype=torch.int32)
         report("stable_sort n=2^24 int32", lambda: ops.stable_sort(chunk),
                2 * chunk.numel() * 4, lambda: torch.sort(chunk, stable=True))
-    if args.json:
-        with open(args.json, "a") as fh:
+        del chunk
+        entries()
+    return _write(args.json, rows)
+
+
+def _write(path: str, rows) -> int:
+    if path:
+        with open(path, "a") as fh:
             for row in rows:
                 fh.write(json.dumps(row) + "\n")
     return 0

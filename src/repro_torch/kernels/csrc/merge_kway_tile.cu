@@ -50,8 +50,12 @@
 // merge_kway_groups_kernel takes groups of at most 4096 elements (a tile of
 // its own) and sorts them in registers; merge_kway_groups_wide_kernel takes
 // wider groups, co-ranks each output tile inside its group in the block, and
-// merges it with the merge tree above.  Each section says what bounds it and
-// what its design does about that.
+// merges it with the merge tree above.  The wide launch also has the ragged
+// form (run lengths, an out_len), so with g = 1 it is the one-launch k-way
+// merge of up to 64 runs that the entry points (stable_merge_kway,
+// merge_window) take; merge_kway_tile_kernel with phase-1 cuts stays the
+// route for more runs.  Each section says what bounds it and what its
+// design does about that.
 //
 // The run count k is a launch argument (any k >= 1; at most 64 for the wide
 // grouped launch).  Keys are int32,
@@ -910,8 +914,18 @@ __global__ void __launch_bounds__(kThreads)
 // of width w, laid out (g, k, w), of any size; merge sort's passes above the
 // leaf.  The output of group i is cut into tiles of S = 3840 elements (ranks
 // [r*S, min((r+1)*S, k*w)) of the group's stable merge); a block takes a few
-// consecutive tiles of one group (tiles_per_block: more when k is small and
-// the pass has many tiles).
+// consecutive tiles of one group (tiles_per_block: up to 8, fewer at large
+// k or when the pass has few tiles), which share their boundaries.
+//
+// The ragged form: with int32 lengths (g, k), run q of group i holds
+// lengths[i, q] real elements (each clamped to [0, w]), the rest of its row
+// padding that is never read; the group's output is its first out_len ranks
+// (out_len <= k*w; tiles of S from 0), and positions at or past the group's
+// real total are not written.  The co-rank counts as
+// repro_torch.core.engine.lemma1_counts does: every window of run q starts
+// inside [max(0, i - (the other runs' real total)), min(len_q, i)], so only
+// real elements are probed, staged or merged, and real dtype-max keys never
+// meet the padding.
 //
 // There is no phase 1.  The block co-ranks its tiles' boundaries inside its
 // group itself, the paper's partition that every processing element
@@ -926,14 +940,20 @@ __global__ void __launch_bounds__(kThreads)
 //     (which keeps every decision of the full count), is bracketed by the
 //     other runs' probes in shared memory: a probe whose bracket lies below
 //     the boundary is taken, one above is not, and the window shrinks to
-//     between them.  For k <= 8 that shrinks the windows' total by (k+2)/32
-//     or better a round with one dependent global read; for more runs (or a
-//     round that did not shrink) an undecided probe also counts exactly by a
-//     binary search in global memory inside its bracket.
+//     between them.  Where the runs interleave evenly, a probe's bracket is
+//     about one probe step wide whatever k is, so a round shrinks the
+//     windows to a few steps of 32 with one dependent global read (a
+//     probe is bracketed in every other run: k^2 searches in shared memory
+//     a boundary a round, which is what the co-rank costs at large k).
+//     Once a round fails to halve a boundary's windows (runs that do not
+//     interleave evenly, long ties), every probe also counts exactly by a
+//     binary search in global memory inside each of its brackets.
 //   * Exact stage: once a boundary's windows hold at most S / (boundaries)
-//     elements in all, they are read into shared memory and every
-//     candidate's clamped rank is counted there; the cut is the window start
-//     plus the taken.
+//     elements in all, they are read into shared memory, and a warp per
+//     (boundary, run) binary-searches that run's window for the first
+//     element whose clamped rank reaches the boundary, each step's counts
+//     into the other runs' windows taken a lane a run; the cut is the
+//     window start plus what precedes it.
 // Then, tile by tile, the block stages exactly its segments and runs
 // merge_kway_tile's merge tree (TablePairs levels) and leaves with 16-byte
 // stores, as that kernel does.  The bound on an H100 is bytes, as for
@@ -945,15 +965,15 @@ __global__ void __launch_bounds__(kThreads)
 namespace wide {
 
 constexpr int kProbes = 32;        // probes of one window a round: one warp
-constexpr int kBracketRuns = 8;    // up to this k, brackets alone suffice
 constexpr int kMaxRuns = 64;
 constexpr int kWarps = kThreads / 32;
 
-// Tiles a block takes: up to 8 / 4 / 2 / 1 for k = 2 / 4 / 8 / more, so
-// that (tiles + 1) * k windows are at most about two warps' worth a round,
+// Tiles a block takes: up to 8 for k <= 16, 4 for k <= 32 and 2 above (a
+// block's T tiles share T + 1 boundaries, and the co-rank's work is per
+// boundary; the probe tables of (T + 1) * k windows bound T at large k),
 // and fewer when the pass has few tiles (every SM should get work).
 __host__ __device__ constexpr int tiles_per_block(int k, int64_t tiles) {
-  const int by_k = k <= 2 ? 8 : k <= 4 ? 4 : k <= 8 ? 2 : 1;
+  const int by_k = k <= 16 ? 8 : k <= 32 ? 4 : 2;
   const int64_t by_size = tiles / 1024;
   return by_size < 1 ? 1 : by_size < by_k ? static_cast<int>(by_size) : by_k;
 }
@@ -978,10 +998,18 @@ __device__ __forceinline__ int count_before(const Key* src, int n, Key x,
   return lo;
 }
 
+// The sum of x over the warp's lanes, in every lane.
+__device__ __forceinline__ int64_t warp_sum(int64_t x) {
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) x += __shfl_xor_sync(0xffffffffu, x, d);
+  return x;
+}
+
+constexpr int kInterleave = 4;
+
 // The probes of a window (kProbes sorted values) that come before x: a
 // fixed five-step search, then the last probe.  Probes of a window not
 // probed this round are never used.
-constexpr int kInterleave = 4;
 template <typename Key>
 __device__ __forceinline__ int probes_before(const Key* p, Key x, bool ties) {
   const auto ox = ord(x);
@@ -1002,17 +1030,27 @@ template <typename Key>
 __host__ __device__ constexpr size_t scratch_bytes(int k, int nb) {
   return nb * k * kProbes * sizeof(Key)         // probe values
          + k * sizeof(int64_t)                  // segment sources
-         + nb * sizeof(int64_t)                 // last window totals
+         + (nb + 2) * sizeof(int64_t)           // last window totals, totals
          + (nb * k * kProbes                    // probe positions
             + 5 * nb * k                        // lo, hi, new lo, new hi, taken
             + nb * (k + 1) + (k + 1)            // window offsets, segment starts
+            + k                                 // run lengths
             + 2 + nb) * sizeof(int);            // flags
 }
+
+// The most scratch a launch takes: the widest (k, boundaries) of each tier
+// of tiles_per_block.
+template <typename Key>
+constexpr size_t kMaxScratch = std::max({scratch_bytes<Key>(16, 9),
+                                         scratch_bytes<Key>(32, 5),
+                                         scratch_bytes<Key>(64, 3)});
 
 template <typename Key, typename Val, bool HAS_VALS>
 __global__ void __launch_bounds__(kThreads)
     merge_kway_groups_wide_kernel(const Key* __restrict__ runs,
-                                  const Val* __restrict__ vals, int k, int w,
+                                  const Val* __restrict__ vals,
+                                  const int32_t* __restrict__ lengths, int k,
+                                  int w, int64_t out_len,
                                   int64_t tiles_per_group, int per_block,
                                   Key* __restrict__ out_k,
                                   Val* __restrict__ out_v) {
@@ -1034,6 +1072,8 @@ __global__ void __launch_bounds__(kThreads)
   sp += k * sizeof(int64_t);
   int64_t* const last_total = reinterpret_cast<int64_t*>(sp);  // [nb]
   sp += nb * sizeof(int64_t);
+  int64_t* const totals = reinterpret_cast<int64_t*>(sp);  // real, cut at out_len
+  sp += 2 * sizeof(int64_t);
   int* const pt = reinterpret_cast<int*>(sp);  // [nb][k][kProbes]
   int* const lo = pt + nb * k * kProbes;       // [nb][k]: the windows
   int* const hi = lo + nb * k;
@@ -1042,7 +1082,8 @@ __global__ void __launch_bounds__(kThreads)
   int* const taken = nhi + nb * k;             // [nb][k]
   int* const woff = taken + nb * k;            // [nb][k + 1]
   int* const seg_start = woff + nb * (k + 1);  // [k + 1]
-  int* const flags = seg_start + (k + 1);      // go / segments, exact, active[nb]
+  int* const run_len = seg_start + (k + 1);    // [k]
+  int* const flags = run_len + k;              // go / segments, exact, active[nb]
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -1050,19 +1091,46 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t G = static_cast<int64_t>(k) * w;
   const Key* const grp = runs + gi * G;  // run q starts at grp + q * w
   const int cap = kTile / nb;            // window elements a boundary stages
+
+  // The runs' real lengths (w each without `lengths`; clamped to [0, w]),
+  // their sum and the output's real end: min(sum, out_len).
+  for (int q = tid; q < k; q += kThreads) {
+    int len = w;
+    if (lengths != nullptr) {
+      len = lengths[gi * k + q];
+      len = len < 0 ? 0 : len > w ? w : len;
+    }
+    run_len[q] = len;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int64_t sum = 0;
+    for (int q = 0; q < k; ++q) sum += run_len[q];
+    totals[0] = sum;
+    totals[1] = sum < out_len ? sum : out_len;
+  }
+  __syncthreads();
+  const int64_t real_total = totals[0];
+  const int64_t end = totals[1];
+  // Tiles past the real end write nothing; a block that holds only such
+  // tiles has nothing to do.
+  if (r0 * kTile >= end) return;
   auto bound = [&](int b) {
     const int64_t i = (r0 + b) * kTile;
-    return i < G ? i : G;
+    return i < end ? i : end;
   };
   const int pairs = nb * k;
 
+  // Every cut of run q at boundary i lies in [max(0, i - (the other runs'
+  // real elements)), min(len_q, i)]: only real elements are ever read.
   for (int e = tid; e < pairs; e += kThreads) {
     const int64_t i = bound(e / k);
-    const int64_t from = i - static_cast<int64_t>(k - 1) * w;
+    const int len = run_len[e % k];
+    const int64_t from = i - (real_total - len);
     lo[e] = static_cast<int>(from > 0 ? from : 0);
-    hi[e] = static_cast<int>(i < w ? i : static_cast<int64_t>(w));
+    hi[e] = static_cast<int>(i < len ? i : static_cast<int64_t>(len));
   }
-  if (tid == 0) flags[1] = k > kBracketRuns;
+  if (tid == 0) flags[1] = 0;
   for (int b = tid; b < nb; b += kThreads) last_total[b] = INT64_MAX;
   __syncthreads();
 
@@ -1075,7 +1143,8 @@ __global__ void __launch_bounds__(kThreads)
         for (int q = 0; q < k; ++q) total += hi[lane * k + q] - lo[lane * k + q];
         more = total > cap;
         flags[2 + lane] = more;
-        if (more && total >= last_total[lane]) flags[1] = 1;  // stalled
+        // A round that did not halve the windows: count exactly from now on.
+        if (more && 2 * total > last_total[lane]) flags[1] = 1;
         last_total[lane] = total;
       }
       more = __any_sync(0xffffffffu, more);
@@ -1160,8 +1229,11 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
   }
 
-  // Exact stage: every boundary's windows side by side in kbuf0; every
-  // candidate's clamped rank counted in shared memory.
+  // Exact stage: every boundary's windows side by side in kbuf0; then a
+  // warp per (boundary, run) finds how many of the run's window elements
+  // rank below the boundary, by a binary search over the window whose
+  // every step counts the candidate into the other runs' windows, a lane a
+  // run (clamped ranks, as above).
   if (tid == 0) {
     for (int b = 0; b < nb; ++b) {
       int s = 0;
@@ -1173,7 +1245,6 @@ __global__ void __launch_bounds__(kThreads)
       if (s > cap) __trap();
     }
   }
-  for (int e = tid; e < pairs; e += kThreads) taken[e] = 0;
   __syncthreads();
   for (int b = 0; b < nb; ++b) {  // every copy in flight at once
     const int* const wo = woff + b * (k + 1);
@@ -1185,20 +1256,33 @@ __global__ void __launch_bounds__(kThreads)
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
-  for (int b = 0; b < nb; ++b) {
+  for (int e = warp; e < pairs; e += kWarps) {
+    const int b = e / k;
+    const int q = e % k;
     const int* const wo = woff + b * (k + 1);
     const Key* const win = kbuf0 + b * cap;
-    for (int c = tid; c < wo[k]; c += kThreads) {
-      const int q = last_at_most(wo, k, 1, c);
-      const Key x = win[c];
-      int64_t rank = lo[b * k + q] + (c - wo[q]);
-      for (int qq = 0; qq < k; ++qq) {
-        if (qq == q) continue;
-        rank += lo[b * k + qq] +
-                count_before(win + wo[qq], wo[qq + 1] - wo[qq], x, qq < q);
+    const int64_t i = bound(b);
+    int64_t base = 0;  // every run's window start
+    for (int qq = lane; qq < k; qq += 32) base += lo[b * k + qq];
+    base = warp_sum(base);
+    int a = 0;
+    int z = wo[q + 1] - wo[q];
+    while (a < z) {  // warp-uniform: the smallest t whose rank is >= i
+      const int mid = (a + z) >> 1;
+      const Key x = win[wo[q] + mid];
+      int64_t c = 0;
+      for (int qq = lane; qq < k; qq += 32) {
+        if (qq != q) {
+          c += count_before(win + wo[qq], wo[qq + 1] - wo[qq], x, qq < q);
+        }
       }
-      if (rank < bound(b)) atomicAdd(&taken[b * k + q], 1);
+      if (base + mid + warp_sum(c) < i) {
+        a = mid + 1;
+      } else {
+        z = mid;
+      }
     }
+    if (lane == 0) taken[e] = a;
   }
   __syncthreads();
 
@@ -1252,7 +1336,7 @@ __global__ void __launch_bounds__(kThreads)
 
     // The tile starts at a multiple of 16 bytes when the group size allows
     // it: else store element by element (still coalesced).
-    const int64_t out = gi * G + bound(ti);
+    const int64_t out = gi * out_len + bound(ti);
     Key* const dk = out_k + out;
     const Key* const rk = flipped ? kbuf1 : kbuf0;
     if (reinterpret_cast<uintptr_t>(dk) % 16 == 0) {
@@ -1282,6 +1366,7 @@ struct Args {
   Mode mode;
   const void* runs;
   const void* vals;
+  const void* lengths;
   int k;
   int64_t w;
   const void* cb;
@@ -1369,21 +1454,22 @@ int launch_wide(const Args& a) {
   if (!opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(kBuffers + wide::scratch_bytes<Key>(
-                                        wide::kMaxRuns, 2)));
+        static_cast<int>(kBuffers + wide::kMaxScratch<Key>));
     if (err != cudaSuccess) return static_cast<int>(err);
     opted_in = true;
   }
-  const int64_t per_group = (a.k * a.w + kTile - 1) / kTile;
+  const int64_t per_group = (a.out_len + kTile - 1) / kTile;
   const int per_block = wide::tiles_per_block(a.k, a.groups * per_group);
   const int64_t blocks = a.groups * ((per_group + per_block - 1) / per_block);
   if (blocks > 0x7fffffff) return -1;
+  if (blocks == 0) return 0;
   const int nb = static_cast<int>(per_group < per_block ? per_group : per_block) + 1;
   const size_t dyn = kBuffers + wide::scratch_bytes<Key>(a.k, nb);
   kernel<<<static_cast<unsigned>(blocks), kThreads, dyn, a.stream>>>(
-      static_cast<const Key*>(a.runs), static_cast<const Val*>(a.vals), a.k,
-      static_cast<int>(a.w), per_group, per_block,
-      static_cast<Key*>(a.out_k), static_cast<Val*>(a.out_v));
+      static_cast<const Key*>(a.runs), static_cast<const Val*>(a.vals),
+      static_cast<const int32_t*>(a.lengths), a.k, static_cast<int>(a.w),
+      a.out_len, per_group, per_block, static_cast<Key*>(a.out_k),
+      static_cast<Val*>(a.out_v));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1487,23 +1573,32 @@ extern "C" int merge_kway_groups_launch(int key_dtype, int val_bytes,
   return dispatch(key_dtype, val_bytes, a);
 }
 
-// The wide grouped launch: runs/vals (groups, k, w) row-major, out_k/out_v
-// (groups, k*w), any k*w below 2^31, 1 <= k <= 64; tile = 3840 output
-// elements a block.  Same dtype codes and return values as above.
+// The wide grouped launch: runs/vals (groups, k, w) row-major, any k*w
+// below 2^31, 1 <= k <= 64; lengths: null, or int32 (groups, k) real run
+// lengths (each clamped to [0, w]; a run's elements past its length are
+// never read); out_k/out_v (groups, out_len), 0 <= out_len <= k*w: the
+// first out_len ranks of each group's merge, positions at or past the
+// group's real total not written; tile = 3840 output elements a block.
+// Same dtype codes and return values as above.
 extern "C" int merge_kway_groups_wide_launch(int key_dtype, int val_bytes,
                                              int tile, int k, int64_t w,
                                              int64_t groups,
                                              const void* runs,
-                                             const void* vals, void* out_k,
+                                             const void* vals,
+                                             const void* lengths,
+                                             int64_t out_len, void* out_k,
                                              void* out_v, void* stream) {
   if (tile != kTile || k < 1 || k > wide::kMaxRuns || w < 1 || groups < 1 ||
-      static_cast<int64_t>(k) * w >= (int64_t{1} << 31)) {
+      static_cast<int64_t>(k) * w >= (int64_t{1} << 31) || out_len < 0 ||
+      out_len > static_cast<int64_t>(k) * w) {
     return -1;
   }
   Args a{};
   a.mode = Mode::kWide;
   a.runs = runs;
   a.vals = vals;
+  a.lengths = lengths;
+  a.out_len = out_len;
   a.k = k;
   a.w = w;
   a.out_k = out_k;

@@ -5,9 +5,11 @@ Two TPU kernels, ported as four launches, each with a wrapper, a launch
 counter and a plain PyTorch version of the same function:
 
 * :func:`merge_tile` (``csrc/merge_tile.cu``) replaces
-  ``merge_tile_kernel``: the output tiles of ``S`` elements of the stable
-  merge of ``A`` and ``B``, walked by persistent CUDA blocks that stage
-  the next tile's windows while they merge the current one.
+  ``merge_tile_kernel`` and the phase 1 in front of it: the stable merge
+  of ``A`` and ``B`` in tiles of ``S`` outputs, each CUDA block co-ranking
+  the boundaries of its own contiguous range of tiles (the paper's
+  Algorithm 1) and then staging the next tile's windows while it merges
+  the current one.
 * :func:`merge_kway_tile` (``csrc/merge_kway_tile.cu``) replaces
   ``merge_kway_tile_kernel``: one ``S``-tile of the stable merge of ``k``
   runs per CUDA block, with an optional payload, as a tree of pairwise
@@ -20,16 +22,17 @@ counter and a plain PyTorch version of the same function:
   block sort and rounds): persistent blocks, each group sorted in
   registers and warp shuffles, the levels above a warp in shared memory.
 * :func:`merge_kway_groups_wide` (``merge_kway_groups_wide_kernel``)
-  merges groups wider than that tile (merge sort's later passes): each
-  block co-ranks its own output tile inside its group and merges it as
-  ``merge_kway_tile`` does.
+  merges groups wider than that tile (merge sort's later passes), with an
+  optional ragged form (run lengths, ``out_len``): each block co-ranks its
+  own output tiles inside its group and merges them as ``merge_kway_tile``
+  does.
 
-The first two take their tile windows from phase 1 — the co-ranks of
-every tile boundary ``r*S`` (``co_rank_batch`` / ``co_rank_kway_batch`` in
-torch ops, as the reference computes them in plain JAX).
-:func:`merge_tiled` and :func:`merge_kway_tiled` run both phases, the
-counterparts of ``merge_pallas`` and ``merge_kway_pallas``.  The grouped
-launches need no phase 1.
+Only :func:`merge_kway_tile` takes its tile windows from a phase 1 in
+torch ops (``co_rank_kway_batch``, as the reference computes them in
+plain JAX).  :func:`merge_tiled` and :func:`merge_kway_tiled` are the
+counterparts of ``merge_pallas`` and ``merge_kway_pallas``: one launch of
+:func:`merge_tile`, and for ``k <= WIDE_MAX_RUNS`` runs one wide launch
+with ``g = 1``; more runs take phase 1 and :func:`merge_kway_tile`.
 
 A wrapper takes its plain version only when every tensor it is given lies
 on the CPU (the tests).  For CUDA tensors it launches the kernel on the
@@ -113,7 +116,7 @@ _L = ctypes.c_int64
 @functools.cache
 def _merge_tile_fn():
     fn = _build.load("merge_tile").merge_tile_launch
-    fn.argtypes = [_I, _I, _P, _P, _P, _P, _P, _L, _L, _L, _P]
+    fn.argtypes = [_I, _I, _P, _P, _P, _L, _L, _L, _P, _P, _P]
     fn.restype = _I
     return fn
 
@@ -137,7 +140,7 @@ def _merge_kway_groups_fn():
 @functools.cache
 def _merge_kway_groups_wide_fn():
     fn = _build.load("merge_kway_tile").merge_kway_groups_wide_launch
-    fn.argtypes = [_I, _I, _I, _I, _L, _L, _P, _P, _P, _P, _P]
+    fn.argtypes = [_I, _I, _I, _I, _L, _L, _P, _P, _P, _L, _P, _P, _P]
     fn.restype = _I
     return fn
 
@@ -216,73 +219,84 @@ def _direct(*tensors) -> bool:
                for t in tensors)
 
 
-def merge_tile(a, b, jb, kb):
-    """Merge the output tiles ``[r*MERGE_TILE, min((r+1)*MERGE_TILE, m+n))``
-    of the stable merge of sorted ``a`` and ``b`` in one launch.
+def merge_tile(a, b, *, cuts: bool = False):
+    """Stable merge of sorted 1-D ``a`` and ``b`` (one dtype of int32,
+    int64, float32, float64, float16 or bfloat16; ``m + n < 2^31``) in one
+    launch, tiles of ``MERGE_TILE`` outputs.
 
-    ``jb``/``kb``: int32 ``(G+1,)`` co-ranks of the tile boundaries
-    ``min(r*MERGE_TILE, m+n)`` (phase 1).  ``a`` and ``b`` share a dtype
-    (int32, int64, float32, float64, float16 or bfloat16).  Returns the
-    merged ``(m+n,)`` tensor.
+    The kernel co-ranks every tile boundary ``min(r*MERGE_TILE, m+n)``
+    itself (Algorithm 1, a lane a boundary).  Returns the merged ``(m+n,)``
+    tensor, or with ``cuts=True`` ``(out, jb, kb)``: the int32 ``(G+1,)``
+    co-ranks the kernel found, which equal ``co_rank_batch``'s.
     """
-    _on_cpu(a, b, jb, kb)  # devices are checked before the op's dispatch
-    if _direct(a, b, jb, kb):
-        return _merge_tile_impl(a, b, jb, kb)
-    return torch.ops.repro_torch.merge_tile(a, b, jb, kb)
+    _on_cpu(a, b)  # devices are checked before the op's dispatch
+    if _direct(a, b):
+        out = _merge_tile_impl(a, b, cuts)
+    else:
+        out = torch.ops.repro_torch.merge_tile(a, b, cuts)
+    return out if cuts else out[0]
 
 
 @torch.library.custom_op("repro_torch::merge_tile", mutates_args=())
-def _merge_tile_op(a: torch.Tensor, b: torch.Tensor, jb: torch.Tensor,
-                   kb: torch.Tensor) -> torch.Tensor:
-    return _merge_tile_impl(a, b, jb, kb)
+def _merge_tile_op(a: torch.Tensor, b: torch.Tensor,
+                   cuts: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Three outputs always: the cuts are empty without ``cuts``."""
+    return _merge_tile_impl(a, b, cuts)
 
 
 @_merge_tile_op.register_fake
-def _(a, b, jb, kb):
-    return a.new_empty((a.shape[0] + b.shape[0],))
+def _(a, b, cuts):
+    total = a.shape[0] + b.shape[0]
+    g = -(-total // MERGE_TILE) + 1 if cuts else 0
+    return (a.new_empty((total,)), a.new_empty((g,), dtype=torch.int32),
+            a.new_empty((g,), dtype=torch.int32))
 
 
-def _merge_tile_impl(a, b, jb, kb):
+def _merge_tile_impl(a, b, cuts: bool = False):
     op = "merge_tile"
-    on_cpu = _on_cpu(a, b, jb, kb)
+    on_cpu = _on_cpu(a, b)
     _check(a.dtype == b.dtype and a.dtype in _MERGE_DTYPES, op,
            f"keys must share one of {list(_MERGE_DTYPES)}, got {a.dtype}/{b.dtype}")
-    _check(a.dim() == b.dim() == jb.dim() == kb.dim() == 1, op, "all inputs must be 1-D")
-    _check(jb.dtype == kb.dtype == torch.int32, op, "co-ranks must be int32")
-    _check(jb.shape == kb.shape, op, "jb and kb must have one shape")
-    for t in (a, b, jb, kb):
-        _check(t.is_contiguous(), op, "inputs must be contiguous")
-    total = a.shape[0] + b.shape[0]
-    g = jb.shape[0] - 1
-    _check(g == -(-total // MERGE_TILE), op,
-           f"{g} tiles given for {total} outputs at tile {MERGE_TILE}")
-    if on_cpu:
-        return merge_tile_plain(a, b, jb, kb, tile=MERGE_TILE)
-    out = torch.empty((total,), dtype=a.dtype, device=a.device)
-    if g > 0:
-        with torch.cuda.device(a.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = _merge_tile_fn()(
-                _MERGE_DTYPES[a.dtype], MERGE_TILE, a.data_ptr(), b.data_ptr(),
-                jb.data_ptr(), kb.data_ptr(), out.data_ptr(), a.shape[0],
-                b.shape[0], g, stream,
-            )
-        _raise_on_error(op, err)
-        merge_tile.launches += 1
-    return out
+    _check(a.dim() == b.dim() == 1, op, "both inputs must be 1-D")
+    _check(a.is_contiguous() and b.is_contiguous(), op, "inputs must be contiguous")
+    m, n = a.shape[0], b.shape[0]
+    total = m + n
+    _check(total < 1 << 31, op, f"{total} outputs: the cuts are int32")
+    g = -(-total // MERGE_TILE)
+    if on_cpu:  # the plain version: phase 1 in torch ops, then the tiles
+        cr = co_rank_batch(tile_bounds(total, MERGE_TILE, a.device), a, b)
+        out = merge_tile_plain(a, b, cr.j, cr.k, tile=MERGE_TILE)
+        jb, kb = cr.j, cr.k
+    else:
+        out = torch.empty((total,), dtype=a.dtype, device=a.device)
+        jb = kb = None
+        if cuts:  # the kernel writes every boundary's (none without a tile)
+            jb, kb = (torch.zeros((g + 1,), dtype=torch.int32, device=a.device)
+                      for _ in range(2))
+        if g > 0:
+            with torch.cuda.device(a.device):
+                err = _merge_tile_fn()(
+                    _MERGE_DTYPES[a.dtype], MERGE_TILE, a.data_ptr(),
+                    b.data_ptr(), out.data_ptr(), m, n, g,
+                    None if jb is None else jb.data_ptr(),
+                    None if kb is None else kb.data_ptr(),
+                    torch.cuda.current_stream().cuda_stream,
+                )
+            _raise_on_error(op, err)
+            merge_tile.launches += 1
+    if not cuts:
+        jb, kb = (a.new_empty((0,), dtype=torch.int32) for _ in range(2))
+    return out, jb, kb
 
 
 merge_tile.launches = 0
 
 
 def merge_tiled(a, b) -> torch.Tensor:
-    """Stable merge of two sorted 1-D tensors: phase 1 co-ranks every tile
-    boundary, :func:`merge_tile` merges the tiles (``merge_pallas``)."""
+    """Stable merge of two sorted 1-D tensors (``merge_pallas``): one
+    :func:`merge_tile` launch, which co-ranks its own tiles."""
     dtype = torch.promote_types(a.dtype, b.dtype)
-    a, b = a.to(dtype).contiguous(), b.to(dtype).contiguous()
-    bounds = tile_bounds(a.shape[0] + b.shape[0], MERGE_TILE, a.device)
-    cr = co_rank_batch(bounds, a, b)
-    return merge_tile(a, b, cr.j, cr.k)
+    return merge_tile(a.to(dtype).contiguous(), b.to(dtype).contiguous())
 
 
 # ---------------------------------------------------------------------------
@@ -466,21 +480,29 @@ def merge_kway_tiled(runs, vals=None, *, lengths=None,
     """Stable merge of ``k`` sorted rows in one tiled pass
     (``merge_kway_pallas``).
 
-    Phase 1 cuts every tile boundary into every run at once
-    (``co_rank_kway_batch``, clamped at ``lengths`` so padding is never
-    merged: rows must stay sorted over their full width); phase 2 is
-    :func:`merge_kway_tile`.  Returns the first ``out_len`` (default
-    ``k*w``) merged keys (and payload); with ``lengths``, positions
-    ``>= sum(lengths)`` are unspecified.
+    ``k <= WIDE_MAX_RUNS``: one wide launch with ``g = 1``
+    (:func:`merge_kway_groups_wide`), whose blocks co-rank their own tiles,
+    clamped at ``lengths`` so padding is never merged.  More runs: phase 1
+    cuts every tile boundary into every run at once in torch ops
+    (``co_rank_kway_batch``, clamped alike), then :func:`merge_kway_tile`.
+    Rows must stay sorted over their full width.  Returns the first
+    ``out_len`` (default ``k*w``) merged keys (and payload); with
+    ``lengths``, positions ``>= sum(lengths)`` are unspecified.
     """
     k, w = runs.shape
     total = k * w if out_len is None else out_len
     runs = runs.contiguous()
+    vals = None if vals is None else vals.contiguous()
+    if k <= WIDE_MAX_RUNS:
+        lens = None if lengths is None else torch.as_tensor(
+            lengths, dtype=torch.int32, device=runs.device).reshape(1, k)
+        out_k, out_v = merge_kway_groups_wide(
+            runs[None], None if vals is None else vals[None], lens,
+            out_len=total)
+        return out_k[0] if vals is None else (out_k[0], out_v[0])
     bounds = tile_bounds(total, KWAY_TILE, runs.device)
     cb = co_rank_kway_batch(bounds, runs, lengths)  # (G+1, k)
-    return merge_kway_tile(runs, cb,
-                           vals=None if vals is None else vals.contiguous(),
-                           out_len=total)
+    return merge_kway_tile(runs, cb, vals=vals, out_len=total)
 
 
 # ---------------------------------------------------------------------------
@@ -543,30 +565,21 @@ def _merge_kway_groups_impl(keys, vals=None):
                "payload must be a contiguous 4- or 8-byte tensor shaped like keys")
     if on_cpu:
         return merge_kway_groups_plain(keys, vals)
-    out = _launch_groups(_merge_kway_groups_fn(), op, GROUPS_TILE, keys, vals)
-    if g > 0:
-        merge_kway_tile_groups.launches += 1
-    return out
-
-
-def _launch_groups(fn, op: str, tile: int, keys, vals):
-    """Launch a grouped kernel on ``keys`` ``(g, k, w)`` (and ``vals``) on
-    the current stream of their device: ``(out_k, out_v)`` ``(g, k*w)``."""
-    g, k, w = keys.shape
     out_k = torch.empty((g, k * w), dtype=keys.dtype, device=keys.device)
     out_v = None if vals is None else torch.empty(
         (g, k * w), dtype=vals.dtype, device=vals.device)
     if g == 0:
         return out_k, out_v
     with torch.cuda.device(keys.device):
-        err = fn(
+        err = _merge_kway_groups_fn()(
             _KWAY_DTYPES[keys.dtype], 0 if vals is None else vals.element_size(),
-            tile, k, w, g, keys.data_ptr(),
+            GROUPS_TILE, k, w, g, keys.data_ptr(),
             None if vals is None else vals.data_ptr(), out_k.data_ptr(),
             None if out_v is None else out_v.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
     _raise_on_error(op, err)
+    merge_kway_tile_groups.launches += 1
     return out_k, out_v
 
 
@@ -578,40 +591,77 @@ merge_kway_tile_groups.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def wide_tile_cuts(keys, tile: int = WIDE_TILE) -> torch.Tensor:
-    """Cut vectors of every output tile boundary ``min(r*tile, k*w)`` of
-    every group, in torch ops: ``keys`` ``(g, k, w)`` -> int32 ``(g,
-    ceil(k*w/tile) + 1, k)``; row ``r`` of group ``i`` is
-    ``co_rank_kway_batch`` of that boundary over the runs ``keys[i]``
-    (the run-index tie-break: ``cut_q(i) = |{t : rank(q, t) < i}|``,
-    counted from every element's merged rank)."""
+def _run_lengths(keys, lengths) -> torch.Tensor:
+    """``lengths`` as int32 ``(g, k)`` clamped to ``[0, w]`` (``w`` each
+    without it), as the wide kernel reads them."""
     g, k, w = keys.shape
-    bounds = tile_bounds(k * w, tile, keys.device)  # (tiles + 1,)
-    pos = kway_positions(keys).contiguous()  # (g, k, w), rising in each run
+    if lengths is None:
+        return torch.full((g, k), w, dtype=torch.int32, device=keys.device)
+    return torch.clamp(lengths.to(torch.int32), 0, w)
+
+
+def _wide_positions(keys, lengths) -> torch.Tensor:
+    """Every element's rank in its group's stable merge ``(g, k, w)``,
+    int64, counted as ``engine.lemma1_counts`` does (each other run's count
+    clamped at its real length); padding ranks past every real one."""
+    w = keys.shape[2]
+    pos = kway_positions(keys, lengths).long()
+    pad = torch.arange(w, device=keys.device) >= lengths[..., None]
+    return torch.where(pad, torch.iinfo(torch.int64).max, pos)
+
+
+def wide_tile_cuts(keys, lengths=None, *, out_len: int | None = None,
+                   tile: int = WIDE_TILE) -> torch.Tensor:
+    """Cut vectors of every output tile boundary ``min(r*tile, out_len)``
+    of every group, in torch ops: ``keys`` ``(g, k, w)`` -> int32 ``(g,
+    ceil(out_len/tile) + 1, k)`` (``out_len`` defaults to ``k*w``); row
+    ``r`` of group ``i`` is ``co_rank_kway_batch`` of that boundary over
+    the runs ``keys[i]`` and their ``lengths[i]`` (the run-index tie-break:
+    ``cut_q(b) = |{t < len_q : rank(q, t) < b}|``, counted from every real
+    element's merged rank; a row sums to ``min(b, sum(lengths[i]))``)."""
+    g, k, w = keys.shape
+    lengths = _run_lengths(keys, lengths)
+    bounds = tile_bounds(k * w if out_len is None else out_len, tile,
+                         keys.device)  # (tiles + 1,)
+    pos = _wide_positions(keys, lengths).contiguous()  # rising in each run
     cuts = torch.searchsorted(
-        pos, bounds.expand(g, k, -1).contiguous(), side="left",
+        pos, bounds.long().expand(g, k, -1).contiguous(), side="left",
         out_int32=True)
     return cuts.transpose(1, 2).contiguous()
 
 
-def merge_kway_groups_wide_plain(keys, vals=None, *, tile: int = WIDE_TILE):
+def merge_kway_groups_wide_plain(keys, vals=None, lengths=None, *,
+                                 out_len: int | None = None,
+                                 tile: int = WIDE_TILE):
     """Plain version of :func:`merge_kway_groups_wide`: the kernel's
     function in torch ops.  Every tile's cuts (:func:`wide_tile_cuts`),
-    then each element's tile ``r`` (the one whose cuts bracket it in its
-    run) and its place there: ``r*tile`` plus its index past the tile's
-    cut in its own run plus, for every other run, that run's elements of
-    the same tile before it (strict for later runs, ties for earlier
-    ones: the lower run wins), as :func:`merge_tile_plain` counts inside
-    its windows."""
+    then each real element's tile ``r`` (the one whose cuts bracket it in
+    its run; elements past the last cut are not emitted) and its place
+    there: ``r*tile`` plus its index past the tile's cut in its own run
+    plus, for every other run, that run's real elements of the same tile
+    before it (strict for later runs, ties for earlier ones: the lower run
+    wins), as :func:`merge_tile_plain` counts inside its windows.  Output
+    positions nothing lands on (those past the real total) are zero."""
     g, k, w = keys.shape
+    total = k * w if out_len is None else out_len
     dev = keys.device
-    cuts = wide_tile_cuts(keys, tile).long()  # (g, tiles + 1, k)
+    lens = _run_lengths(keys, lengths).long()
+    cuts = wide_tile_cuts(keys, lens, out_len=total, tile=tile).long()
+    tiles = cuts.shape[1] - 1
+    out_k = torch.zeros((g * total,), dtype=keys.dtype, device=dev)
+    out_v = None if vals is None else torch.zeros(
+        (g * total,), dtype=vals.dtype, device=dev)
+    if tiles == 0:
+        return out_k.reshape(g, total), (
+            None if vals is None else out_v.reshape(g, total))
     t = torch.arange(w, device=dev)
-    loc, tiles = [], []
+    base = (torch.arange(g, device=dev) * total)[:, None]
     for q in range(k):
         own = cuts[:, :, q].contiguous()  # (g, tiles + 1)
         r = torch.searchsorted(own, t.expand(g, w).contiguous(),
                                side="right") - 1  # (g, w)
+        keep = t < own[:, -1:]  # before the last cut: emitted
+        r = torch.clamp(r, max=tiles - 1)
         place = t - torch.gather(own, 1, r)
         for qq in range(k):
             if qq == q:
@@ -619,28 +669,32 @@ def merge_kway_groups_wide_plain(keys, vals=None, *, tile: int = WIDE_TILE):
             side = SIDE_TIES if qq < q else SIDE_STRICT
             cnt = torch.searchsorted(keys[:, qq].contiguous(),
                                      keys[:, q].contiguous(), side=side)
+            cnt = torch.minimum(cnt, lens[:, qq:qq + 1])
             lo = torch.gather(cuts[:, :, qq], 1, r)
             hi = torch.gather(cuts[:, :, qq], 1, r + 1)
             place = place + torch.minimum(torch.maximum(cnt, lo), hi) - lo
-        loc.append(place)
-        tiles.append(r)
-    pos = (torch.stack(tiles, 1) * tile + torch.stack(loc, 1)).reshape(g, k * w)
-    out_k = torch.empty((g, k * w), dtype=keys.dtype, device=dev)
-    out_k.scatter_(1, pos, keys.reshape(g, k * w))
-    if vals is None:
-        return out_k, None
-    out_v = torch.empty((g, k * w), dtype=vals.dtype, device=dev)
-    out_v.scatter_(1, pos, vals.reshape(g, k * w))
-    return out_k, out_v
+        dest = (base + r * tile + place)[keep]
+        out_k[dest] = keys[:, q][keep]
+        if vals is not None:
+            out_v[dest] = vals[:, q][keep]
+    return out_k.reshape(g, total), (
+        None if vals is None else out_v.reshape(g, total))
 
 
-def merge_kway_groups_wide(keys, vals=None):
+def merge_kway_groups_wide(keys, vals=None, lengths=None, *,
+                           out_len: int | None = None):
     """Merge ``g`` independent groups of ``k`` sorted runs in one launch,
-    for groups of any width: ``keys`` ``(g, k, w)`` -> ``(g, k*w)`` stably
-    merged (lower run wins ties), ``vals`` (same shape, any 4- or 8-byte
-    dtype) carried along.  Returns ``(keys, vals)``, ``vals`` ``None``
-    without a payload.  ``1 <= k <= WIDE_MAX_RUNS``; keys of the k-way
-    kernel's six dtypes.
+    for groups of any width: ``keys`` ``(g, k, w)`` -> ``(g, out_len)``
+    stably merged (lower run wins ties), ``vals`` (same shape, any 4- or
+    8-byte dtype) carried along.  Returns ``(keys, vals)``, ``vals``
+    ``None`` without a payload.  ``1 <= k <= WIDE_MAX_RUNS``; keys of the
+    k-way kernel's six dtypes.
+
+    The ragged form: ``lengths`` int32 ``(g, k)`` real run lengths (rows
+    stay sorted over their full width; the padding is never read), and
+    ``out_len <= k*w`` (default ``k*w``) outputs a group: the first
+    ``out_len`` ranks of its merge; positions at or past the group's real
+    total are unspecified (not written).
 
     The wide grouped launch of ``csrc/merge_kway_tile.cu``: a CUDA block
     takes a few consecutive output tiles of ``WIDE_TILE`` elements of one
@@ -648,51 +702,75 @@ def merge_kway_groups_wide(keys, vals=None):
     phase-1 launch, no host read), then stages exactly each tile's segments
     and merges them with ``merge_kway_tile``'s merge tree.
     """
-    _on_cpu(keys, vals)
-    if _direct(keys, vals):
-        return _merge_kway_groups_wide_impl(keys, vals)
-    out_k, out_v = torch.ops.repro_torch.merge_kway_groups_wide(keys, vals)
+    _on_cpu(keys, vals, lengths)
+    if out_len is None:
+        out_len = keys.shape[1] * keys.shape[2] if keys.dim() == 3 else 0
+    if _direct(keys, vals, lengths):
+        return _merge_kway_groups_wide_impl(keys, vals, lengths, out_len)
+    out_k, out_v = torch.ops.repro_torch.merge_kway_groups_wide(
+        keys, vals, lengths, out_len)
     return out_k, (None if vals is None else out_v)
 
 
 @torch.library.custom_op("repro_torch::merge_kway_groups_wide", mutates_args=())
 def _merge_kway_groups_wide_op(
-        keys: torch.Tensor,
-        vals: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor]:
+        keys: torch.Tensor, vals: torch.Tensor | None,
+        lengths: torch.Tensor | None,
+        out_len: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Both outputs always: the payload is empty without ``vals``."""
-    out_k, out_v = _merge_kway_groups_wide_impl(keys, vals)
+    out_k, out_v = _merge_kway_groups_wide_impl(keys, vals, lengths, out_len)
     return out_k, keys.new_empty((0,)) if out_v is None else out_v
 
 
 @_merge_kway_groups_wide_op.register_fake
-def _(keys, vals):
-    g, k, w = keys.shape
-    return (keys.new_empty((g, k * w)),
-            keys.new_empty((0,)) if vals is None else vals.new_empty((g, k * w)))
+def _(keys, vals, lengths, out_len):
+    g = keys.shape[0]
+    return (keys.new_empty((g, out_len)),
+            keys.new_empty((0,)) if vals is None else vals.new_empty((g, out_len)))
 
 
-def _merge_kway_groups_wide_impl(keys, vals=None):
+def _merge_kway_groups_wide_impl(keys, vals, lengths, out_len: int):
     op = "merge_kway_groups_wide"
-    on_cpu = _on_cpu(keys, vals)
+    on_cpu = _on_cpu(keys, vals, lengths)
     _check(keys.dim() == 3, op, f"keys must be (g, k, w), got {tuple(keys.shape)}")
     g, k, w = keys.shape
     _check(keys.dtype in _KWAY_DTYPES, op,
            f"keys must be one of {list(_KWAY_DTYPES)}, got {keys.dtype}")
     _check(1 <= k <= WIDE_MAX_RUNS, op,
            f"k must be in [1, {WIDE_MAX_RUNS}] runs a group, got {k}")
-    _check(w >= 1 and k * w < 1 << 31, op,
-           f"a group of k*w = {k}*{w} elements must be non-empty and under 2^31")
+    _check(k * w < 1 << 31, op,
+           f"a group of k*w = {k}*{w} elements must be under 2^31")
+    _check(0 <= out_len <= k * w, op,
+           f"out_len must be in [0, k*w = {k * w}], got {out_len}")
     _check(keys.is_contiguous(), op, "keys must be contiguous")
     if vals is not None:
         _check(vals.shape == keys.shape and vals.is_contiguous()
                and vals.element_size() in (4, 8), op,
                "payload must be a contiguous 4- or 8-byte tensor shaped like keys")
+    if lengths is not None:
+        _check(lengths.shape == (g, k) and lengths.dtype == torch.int32
+               and lengths.is_contiguous(), op,
+               f"lengths must be a contiguous int32 ({g}, {k}) tensor")
     if on_cpu:
-        return merge_kway_groups_wide_plain(keys, vals)
-    out = _launch_groups(_merge_kway_groups_wide_fn(), op, WIDE_TILE, keys, vals)
-    if g > 0:
-        merge_kway_groups_wide.launches += 1
-    return out
+        return merge_kway_groups_wide_plain(keys, vals, lengths,
+                                            out_len=out_len)
+    out_k = torch.empty((g, out_len), dtype=keys.dtype, device=keys.device)
+    out_v = None if vals is None else torch.empty(
+        (g, out_len), dtype=vals.dtype, device=vals.device)
+    if g == 0 or out_len == 0:
+        return out_k, out_v
+    with torch.cuda.device(keys.device):
+        err = _merge_kway_groups_wide_fn()(
+            _KWAY_DTYPES[keys.dtype], 0 if vals is None else vals.element_size(),
+            WIDE_TILE, k, w, g, keys.data_ptr(),
+            None if vals is None else vals.data_ptr(),
+            None if lengths is None else lengths.data_ptr(), out_len,
+            out_k.data_ptr(), None if out_v is None else out_v.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on_error(op, err)
+    merge_kway_groups_wide.launches += 1
+    return out_k, out_v
 
 
 merge_kway_groups_wide.launches = 0
@@ -716,12 +794,15 @@ def register_dtensor_rules() -> None:
             return [([p], [p]) for p in
                     [Replicate(), Partial(), *map(Shard, range(x.ndim))]]
 
-    def _groups(keys, vals):
-        pv = None if vals is None else Replicate()
-        rules = [([Replicate(), Replicate()], [Replicate(), pv])]
-        sv = None if vals is None else Shard(0)
-        rules.append(([Shard(0), Shard(0) if vals is not None else Replicate()],
-                      [Shard(0), sv]))
+    def _groups(keys, vals, lengths=None, out_len=None):
+        """Each tensor argument replicated, or sharded on its groups."""
+        rules = []
+        for p in (Replicate(), Shard(0)):
+            outs = [p, p if vals is not None else Replicate()]
+            ins = [p, None if vals is None else p]
+            if lengths is not None or out_len is not None:
+                ins += [None if lengths is None else p, None]
+            rules.append((outs, ins))
         return rules
 
     for op in (torch.ops.repro_torch.merge_kway_groups.default,
@@ -729,8 +810,8 @@ def register_dtensor_rules() -> None:
         register_sharding(op)(_groups)
 
     @register_sharding(torch.ops.repro_torch.merge_tile.default)
-    def _tile(a, b, jb, kb):
-        return [([Replicate()], [Replicate()] * 4)]
+    def _tile(a, b, cuts):
+        return [([Replicate()] * 3, [Replicate(), Replicate(), None])]
 
     @register_sharding(torch.ops.repro_torch.merge_kway_tile.default)
     def _kway(runs, cb, vals, out_len):

@@ -376,12 +376,12 @@ def test_wrappers_check_alike_on_cpu_and_card():
     """The wrappers validate before they pick the plain version, so a call
     the kernel would refuse is refused on the CPU too."""
     x = torch.arange(8, dtype=torch.int32)
-    bad = co_rank_batch(km.tile_bounds(16, 4, x.device), x, x)
-    with pytest.raises(ValueError, match="tiles given"):
-        km.merge_tile(x, x, bad.j, bad.k)
-    cr = co_rank_batch(km.tile_bounds(16, km.MERGE_TILE, x.device), x, x)
+    with pytest.raises(ValueError, match="1-D"):
+        km.merge_tile(x[None], x)
     with pytest.raises(ValueError, match="keys must share"):
-        km.merge_tile(x.short(), x.short(), cr.j, cr.k)
+        km.merge_tile(x.short(), x.short())
+    with pytest.raises(ValueError, match="contiguous"):
+        km.merge_tile(x[::2], x)
     runs = torch.zeros((3, 16), dtype=torch.int32)
     cb = co_rank_kway_batch(km.tile_bounds(48, km.KWAY_TILE, x.device), runs)
     with pytest.raises(ValueError, match="4- or 8-byte"):
@@ -396,7 +396,7 @@ def test_wrappers_check_alike_on_cpu_and_card():
 
 def test_on_cpu_refuses_mixed_or_foreign_devices():
     with pytest.raises(ValueError, match="unsupported device"):
-        km.merge_tile(*(torch.empty(1, device="meta") for _ in range(4)))
+        km.merge_tile(*(torch.empty(1, device="meta") for _ in range(2)))
     assert km._on_cpu(torch.zeros(1), None, torch.zeros(2))
 
 
@@ -553,8 +553,123 @@ def test_wide_tile_cuts_match_reference_co_rank(g, k, w):
                 cuts[i, r], np.bincount(run_of[:b], minlength=k))
 
 
+def _ragged_groups(g, k, w, seed):
+    """(g, k, w) int32 runs with ragged lengths (every third row from the
+    second empty), INT32_MAX padding that real INT32_MAX keys collide with,
+    and a payload numbering the elements."""
+    hi = np.iinfo(np.int32).max
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(0, w + 1, (g, k)).astype(np.int32)
+    lengths[:, 1::3] = 0
+    runs = np.full((g, k, w), hi, np.int32)
+    for i in range(g):
+        for q in range(k):
+            runs[i, q, : lengths[i, q]] = np.sort(rng.choice(
+                np.array([hi, hi - 1, 3, -9], np.int32), lengths[i, q]))
+    vals = np.arange(g * k * w, dtype=np.int32).reshape(g, k, w)
+    return runs, vals, lengths
+
+
+@functools.cache
+def _ref_ranked_jit():
+    """The reference's ``merge_kway_ranked``, jitted once for the module."""
+    import jax
+
+    from repro.core.kway import merge_kway_ranked
+
+    return jax.jit(merge_kway_ranked, static_argnames="out_len")
+
+
+@pytest.mark.parametrize("k,w", [(2, 300), (4, 160), (5, 97)])
+def test_wide_ragged_plain_matches_pallas_interpret(k, w):
+    """The wide launch's ragged form (plain version, at a small tile and at
+    the kernel's own): per group, the real part against ``merge_kway_pallas``
+    with ``lengths`` in interpret mode, and the whole output (zeros past the
+    real total) against the reference's ``merge_kway_ranked``, at out_len
+    k*w, the real total and below it."""
+    g = 2
+    runs, vals, lengths = _ragged_groups(g, k, w, k * w)
+    t_runs, t_vals, t_len = map(torch.from_numpy, (runs, vals, lengths))
+    for i in range(g):
+        total = int(lengths[i].sum())
+        pk, pv = merge_kway_pallas(jnp.asarray(runs[i]), jnp.asarray(vals[i]),
+                                   lengths=jnp.asarray(lengths[i]), tile=128)
+        for out_len in (k * w, total, total // 2 + 1):
+            n = min(out_len, total)
+            rk, rv = _ref_ranked_jit()(
+                jnp.asarray(runs[i]), jnp.asarray(vals[i]),
+                jnp.asarray(lengths[i]), out_len=out_len)
+            for tile in (32, km.WIDE_TILE):
+                gk, gv = km.merge_kway_groups_wide_plain(
+                    t_runs, t_vals, t_len, out_len=out_len, tile=tile)
+                assert gk.shape == gv.shape == (g, out_len)
+                np.testing.assert_array_equal(gk[i, :n].numpy(), np.asarray(pk)[:n])
+                np.testing.assert_array_equal(gv[i, :n].numpy(), np.asarray(pv)[:n])
+                np.testing.assert_array_equal(gk[i].numpy(), np.asarray(rk))
+                np.testing.assert_array_equal(gv[i].numpy(), np.asarray(rv))
+            wk, wv = km.merge_kway_groups_wide(t_runs, t_vals, t_len,
+                                               out_len=out_len)
+            np.testing.assert_array_equal(wk[i].numpy(), np.asarray(rk))
+            np.testing.assert_array_equal(wv[i].numpy(), np.asarray(rv))
+
+
+@pytest.mark.parametrize("g,k,w,out_len", [(2, 4, 1025, None), (3, 5, 800, 2500),
+                                           (1, 64, 65, None), (2, 3, 2000, 3840)])
+def test_wide_tile_cuts_with_lengths_match_reference_co_rank(g, k, w, out_len):
+    """Every wide tile's boundary cuts of ragged runs, against the
+    reference's jitted co_rank_kway_batch with ``lengths`` and the port's,
+    group by group; a row sums to min(boundary, real total)."""
+    import jax
+
+    from repro.core.kway import co_rank_kway_batch as ref_co_rank
+
+    runs, _, lengths = _ragged_groups(g, k, w, g + k + w)
+    cuts = km.wide_tile_cuts(torch.from_numpy(runs), torch.from_numpy(lengths),
+                             out_len=out_len).numpy()
+    bounds = km.tile_bounds(k * w if out_len is None else out_len,
+                            km.WIDE_TILE, "cpu")
+    assert cuts.shape == (g, bounds.numel(), k)
+    ref = jax.jit(ref_co_rank)
+    for i in range(g):
+        want = np.asarray(ref(jnp.asarray(bounds.numpy()), jnp.asarray(runs[i]),
+                              jnp.asarray(lengths[i])))
+        np.testing.assert_array_equal(cuts[i], want)
+        np.testing.assert_array_equal(cuts[i], co_rank_kway_batch(
+            bounds, torch.from_numpy(runs[i]), torch.from_numpy(lengths[i])).numpy())
+        np.testing.assert_array_equal(cuts[i].sum(axis=1), np.minimum(
+            bounds.numpy(), lengths[i].sum()))
+
+
+def test_merge_kway_tiled_routes_by_run_count():
+    """Up to 64 runs the k-way merge is the wide launch (one call, no phase
+    1); more runs take phase 1 and merge_kway_tile.  On the CPU both run
+    their plain versions; both equal the stable sort."""
+    from unittest import mock
+
+    for k in (64, 65):
+        runs, vals, lengths = _ragged_groups(1, k, 40, k)
+        t = [torch.from_numpy(x[0]) for x in (runs, vals, lengths)]
+        with mock.patch.object(km, "merge_kway_groups_wide",
+                               wraps=km.merge_kway_groups_wide) as wide, \
+                mock.patch.object(km, "co_rank_kway_batch",
+                                  wraps=km.co_rank_kway_batch) as phase1:
+            gk, gv = km.merge_kway_tiled(t[0], t[1], lengths=t[2])
+        assert (wide.call_count, phase1.call_count) == ((1, 0) if k <= 64 else (0, 1))
+        real = np.arange(40)[None, :] < lengths[0][:, None]
+        order = np.argsort(runs[0][real], kind="stable")
+        total = int(lengths.sum())
+        np.testing.assert_array_equal(gk[:total].numpy(), runs[0][real][order])
+        np.testing.assert_array_equal(gv[:total].numpy(), vals[0][real][order])
+
+
 def test_wide_wrapper_checks_on_cpu():
     keys = torch.zeros((2, 4, 2000), dtype=torch.int32)
+    with pytest.raises(ValueError, match="lengths must be"):
+        km.merge_kway_groups_wide(keys, lengths=torch.zeros((2, 3), dtype=torch.int32))
+    with pytest.raises(ValueError, match="lengths must be"):
+        km.merge_kway_groups_wide(keys, lengths=torch.zeros((2, 4)))
+    with pytest.raises(ValueError, match="out_len must be"):
+        km.merge_kway_groups_wide(keys, out_len=8001)
     with pytest.raises(ValueError, match=r"k must be in \[1, 64\]"):
         km.merge_kway_groups_wide(torch.zeros((1, 65, 100), dtype=torch.int32))
     with pytest.raises(ValueError, match="keys must be one of"):
@@ -587,16 +702,17 @@ def _op_cases():
     rng = np.random.default_rng(5)
     a = torch.tensor(np.sort(rng.integers(0, 50, 5000)), dtype=torch.int32)
     b = torch.tensor(np.sort(rng.integers(0, 50, 3000)), dtype=torch.int32)
-    cr = co_rank_batch(km.tile_bounds(8000, km.MERGE_TILE, "cpu"), a, b)
     runs = torch.sort(torch.randn(4, 2000), dim=-1).values
     cb = co_rank_kway_batch(km.tile_bounds(8000, km.KWAY_TILE, "cpu"), runs, None)
     keys = torch.sort(torch.randint(0, 9, (6, 4, 16)), dim=-1).values.float()
     vals = torch.arange(keys.numel(), dtype=torch.int32).reshape(keys.shape)
     wide = torch.sort(torch.randint(0, 9, (2, 3, 1500)), dim=-1).values.float()
     wide_vals = torch.arange(wide.numel()).reshape(wide.shape)
+    lengths = torch.tensor([[1500, 0, 700], [3, 1500, 1499]], dtype=torch.int32)
     ops = torch.ops.repro_torch
     return {
-        "merge_tile": (ops.merge_tile.default, (a, b, cr.j, cr.k)),
+        "merge_tile": (ops.merge_tile.default, (a, b, False)),
+        "merge_tile+cuts": (ops.merge_tile.default, (a, b, True)),
         "merge_kway_tile": (ops.merge_kway_tile.default, (runs, cb, None, 8000)),
         "merge_kway_tile+payload": (ops.merge_kway_tile.default,
                                     (runs, cb, runs.clone(), 8000)),
@@ -604,9 +720,11 @@ def _op_cases():
         "merge_kway_groups+payload": (ops.merge_kway_groups.default,
                                       (keys, vals)),
         "merge_kway_groups_wide": (ops.merge_kway_groups_wide.default,
-                                   (wide, None)),
+                                   (wide, None, None, 4500)),
         "merge_kway_groups_wide+payload": (ops.merge_kway_groups_wide.default,
-                                           (wide, wide_vals)),
+                                           (wide, wide_vals, None, 4500)),
+        "merge_kway_groups_wide+lengths": (ops.merge_kway_groups_wide.default,
+                                           (wide, wide_vals, lengths, 2000)),
     }
 
 
@@ -623,18 +741,21 @@ def test_custom_op_equals_the_wrapper(case):
     op, args = _op_cases()[case]
     got = op(*args)
     if op is torch.ops.repro_torch.merge_tile.default:
-        want = km.merge_tile(*args)
-        assert torch.equal(got, want)
+        want = km.merge_tile(args[0], args[1], cuts=args[2])
+        if args[2]:
+            assert all(torch.equal(x, y) for x, y in zip(got, want))
+        else:
+            assert torch.equal(got[0], want) and got[1].numel() == got[2].numel() == 0
     elif op is torch.ops.repro_torch.merge_kway_tile.default:
         want = km.merge_kway_tile(args[0], args[1], vals=args[2], out_len=args[3])
         want = (want, None) if args[2] is None else want
         assert torch.equal(got[0], want[0])
         assert got[1].numel() == 0 if args[2] is None else torch.equal(got[1], want[1])
     else:
-        wrapper = (km.merge_kway_groups_wide
-                   if op is torch.ops.repro_torch.merge_kway_groups_wide.default
-                   else km.merge_kway_tile_groups)
-        want = wrapper(*args)
+        if op is torch.ops.repro_torch.merge_kway_groups_wide.default:
+            want = km.merge_kway_groups_wide(*args[:3], out_len=args[3])
+        else:
+            want = km.merge_kway_tile_groups(*args)
         assert torch.equal(got[0], want[0])
         assert got[1].numel() == 0 if args[1] is None else torch.equal(got[1], want[1])
 
@@ -655,15 +776,22 @@ def test_fake_tensors_go_through_the_ops_with_the_kernels_shapes():
                                                             dtype=torch.int64),
                                  out_len=400)
         assert out[1].dtype == torch.int64
-        a, jb = torch.empty(100), torch.empty(2, dtype=torch.int32)
-        assert km.merge_tile(a, a, jb, jb).shape == (200,)
+        a = torch.empty(100)
+        assert km.merge_tile(a, a).shape == (200,)
+        out, jb, kb = km.merge_tile(a, torch.empty(km.MERGE_TILE), cuts=True)
+        assert out.shape == (km.MERGE_TILE + 100,)
+        assert (jb.shape, jb.dtype, kb.shape) == ((3,), torch.int32, (3,))
         wide = torch.empty((3, 4, 5000), dtype=torch.bfloat16)
         k, v = km.merge_kway_groups_wide(wide, wide.long())
         assert (k.shape, k.dtype, v.shape, v.dtype) == (
             (3, 20000), torch.bfloat16, (3, 20000), torch.int64)
         assert km.merge_kway_groups_wide(wide)[1] is None
+        lens = torch.empty((3, 4), dtype=torch.int32)
+        k, v = km.merge_kway_groups_wide(wide, wide.long(), lens, out_len=777)
+        assert (k.shape, v.shape) == ((3, 777), (3, 777))
     assert km.merge_kway_tile_groups.launches == 0  # nothing launched
     assert km.merge_kway_groups_wide.launches == 0
+    assert km.merge_tile.launches == 0
 
 
 GROUPS_ON_A_MESH = r"""
@@ -698,6 +826,12 @@ assert torch.equal(k.to_local(), want[0]) and torch.equal(v.to_local(), want[1])
 r, _ = km.merge_kway_groups_wide(distribute_tensor(wide, mesh, [Replicate()],
                                                    src_data_rank=None))
 assert list(r.placements) == [Replicate()]
+lens = torch.randint(0, 1101, (8, 4), dtype=torch.int32)
+dl = distribute_tensor(lens, mesh, [Shard(0)], src_data_rank=None)
+k, v = km.merge_kway_groups_wide(dk, dv, dl, out_len=3000)
+assert isinstance(k, DTensor) and list(k.placements) == [Shard(0)], k.placements
+want = km.merge_kway_groups_wide_plain(wide[:2], wv[:2], lens[:2], out_len=3000)
+assert torch.equal(k.to_local(), want[0]) and torch.equal(v.to_local(), want[1])
 print("GROUPS OK")
 """
 

@@ -37,12 +37,9 @@ def _sorted_rows(shape, dtype, device, seed):
 def test_merge_tile_kernel_matches_plain_on_card(cuda_device, dtype):
     a = _sorted_rows((100_003,), dtype, cuda_device, 0)
     b = _sorted_rows((77_777,), dtype, cuda_device, 1)
-    bounds = km.tile_bounds(a.numel() + b.numel(), km.MERGE_TILE, cuda_device)
-    cr = co_rank_batch(bounds, a, b)
     before = km.merge_tile.launches
-    got = km.merge_tile(a, b, cr.j, cr.k)
+    got, want = _merge_both(a, b)
     assert km.merge_tile.launches == before + 1
-    want = km.merge_tile_plain(a, b, cr.j, cr.k)
     assert torch.equal(got, want)
 
 
@@ -88,23 +85,55 @@ def test_merge_kway_tile_dtypes_match_plain_on_card(cuda_device, dtype,
         assert torch.equal(got[1], vals.reshape(-1)[order.indices])
 
 
-def test_entry_points_reach_the_kernels(cuda_device):
+def _launch_counts():
+    return {name: getattr(km, name).launches for name in (
+        "merge_tile", "merge_kway_tile", "merge_kway_tile_groups",
+        "merge_kway_groups_wide")}
+
+
+def _no_phase_one(monkeypatch):
+    """Make the torch-ops phase 1 raise where the kernels' wrappers reach
+    it: the k <= 64 routes and the pairwise merge must not."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("phase 1 ran in torch ops")
+
+    monkeypatch.setattr(km, "co_rank_batch", refuse)
+    monkeypatch.setattr(km, "co_rank_kway_batch", refuse)
+
+
+def test_entry_points_reach_the_kernels(cuda_device, monkeypatch):
+    """Each merge entry is one kernel launch with no torch-ops phase 1:
+    ``stable_merge`` one ``merge_tile``, ``stable_merge_kway`` and
+    ``merge_window`` (k <= 64) one wide launch."""
+    _no_phase_one(monkeypatch)
     g = torch.Generator(device=cuda_device).manual_seed(1)
     a, b = (torch.sort(torch.randint(0, 50, (n,), generator=g, device=cuda_device,
                                      dtype=torch.int32)).values
             for n in (5000, 3001))
-    km.merge_tile.launches = 0
+    before = _launch_counts()
     got = ops.stable_merge(a, b)
-    assert km.merge_tile.launches == 1
+    assert _launch_counts() == {**before, "merge_tile": before["merge_tile"] + 1}
     assert torch.equal(got, torch.sort(torch.cat([a, b]), stable=True).values)
-    for k in (4, 3):
+    for k in (4, 3, 64):
         runs = torch.sort(torch.randint(0, 50, (k, 3000), generator=g,
                                         device=cuda_device, dtype=torch.int32),
                           dim=1).values
-        km.merge_kway_tile.launches = 0
+        before = _launch_counts()
         got = ops.stable_merge_kway(runs)
-        assert km.merge_kway_tile.launches == 1
+        wide = before["merge_kway_groups_wide"] + 1
+        assert _launch_counts() == {**before, "merge_kway_groups_wide": wide}
         assert torch.equal(got, torch.sort(runs.reshape(-1), stable=True).values)
+        lengths = torch.randint(0, 3001, (k,), generator=g, device=cuda_device,
+                                dtype=torch.int32)
+        vals = torch.arange(k * 3000, device=cuda_device).reshape(k, 3000)
+        before = _launch_counts()
+        mk, mv = ops.merge_window(runs, vals, lengths, out_len=k * 3000)
+        assert _launch_counts() == {**before, "merge_kway_groups_wide": wide + 1}
+        real = torch.arange(3000, device=cuda_device)[None, :] < lengths[:, None]
+        order = torch.sort(runs[real], stable=True)
+        total = order.values.numel()
+        assert torch.equal(mk[:total], order.values)
+        assert torch.equal(mv[:total], vals[real][order.indices])
 
 
 @pytest.mark.parametrize("fanout", [3, 8])
@@ -116,10 +145,12 @@ def test_external_sort_ragged_groups_on_card(cuda_device, tmp_path, fanout):
     keys = rng.integers(-1000, 1000, n).astype(np.int64)
     vals = rng.standard_normal(n)
     order = np.argsort(keys, kind="stable")
-    km.merge_kway_tile.launches = 0
+    km.merge_kway_tile.launches = km.merge_kway_groups_wide.launches = 0
     got_k, got_v = external_sort(keys, vals, chunk=chunk, fanout=fanout,
                                  window=1000, workdir=str(tmp_path / "kv"))
-    assert km.merge_kway_tile.launches > 0
+    # every window is one wide launch (at most 8 runs)
+    assert km.merge_kway_groups_wide.launches > 0
+    assert km.merge_kway_tile.launches == 0
     np.testing.assert_array_equal(np.asarray(got_k), keys[order])
     np.testing.assert_array_equal(np.asarray(got_v), vals[order])
     keys32 = keys.astype(np.int32)
@@ -131,14 +162,16 @@ def test_external_sort_ragged_groups_on_card(cuda_device, tmp_path, fanout):
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     x = torch.arange(8, device=cuda_device, dtype=torch.int32)
-    cr = co_rank_batch(km.tile_bounds(16, km.MERGE_TILE, cuda_device), x, x)
     with pytest.raises(ValueError, match="keys must share"):
-        km.merge_tile(x.short(), x.short(), cr.j, cr.k)
-    with pytest.raises(ValueError, match="tiles given"):
-        bad = co_rank_batch(km.tile_bounds(16, 4, cuda_device), x, x)
-        km.merge_tile(x, x, bad.j, bad.k)
+        km.merge_tile(x.short(), x.short())
+    with pytest.raises(ValueError, match="1-D"):
+        km.merge_tile(x[None], x)
     with pytest.raises(ValueError, match="several devices"):
-        km.merge_tile(x, x.cpu(), cr.j, cr.k)
+        km.merge_tile(x, x.cpu())
+    with pytest.raises(ValueError, match="lengths must be"):
+        km.merge_kway_groups_wide(x.reshape(1, 2, 4),
+                                  lengths=torch.zeros((1, 3), dtype=torch.int32,
+                                                      device=cuda_device))
     runs = torch.zeros((km.KWAY_MAX_RUNS + 1, 1), device=cuda_device,
                        dtype=torch.int32)
     cb = torch.zeros((2, runs.shape[0]), device=cuda_device, dtype=torch.int32)
@@ -154,14 +187,20 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
 
 
 def _merge_both(a, b):
-    """merge_tile and its plain version at the kernel's tile."""
+    """merge_tile and its plain version at the kernel's tile: the cuts the
+    kernel found equal ``co_rank_batch``'s bit for bit, and the merge is
+    ``torch.sort(stable=True)``'s."""
     bounds = km.tile_bounds(a.numel() + b.numel(), km.MERGE_TILE, a.device)
     cr = co_rank_batch(bounds, a, b)
-    return (km.merge_tile(a, b, cr.j, cr.k),
-            km.merge_tile_plain(a, b, cr.j, cr.k))
+    got, jb, kb = km.merge_tile(a, b, cuts=True)
+    assert torch.equal(jb, cr.j) and torch.equal(kb, cr.k)
+    ab = torch.cat([a, b])
+    order = torch.sort(ab + 0 if ab.is_floating_point() else ab, stable=True)
+    assert torch.equal(got.view(torch.uint8), ab[order.indices].view(torch.uint8))
+    return got, km.merge_tile_plain(a, b, cr.j, cr.k)
 
 
-@pytest.mark.parametrize("dtype", [torch.int32, torch.int64, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_merge_tile_every_alignment_on_card(cuda_device, dtype):
     """Inputs starting at every element offset inside a 16-byte block, so
     the staged windows start at every residue mod 16 bytes."""
@@ -187,14 +226,28 @@ def test_merge_tile_tiles_from_one_input_on_card(cuda_device):
         assert torch.equal(got, torch.sort(torch.cat([x, y])).values)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("m,n", [(5, 7), (1, 0), (0, 1), (0, 9000), (9000, 0),
-                                 (km.MERGE_TILE - 1, 1)])
-def test_merge_tile_short_and_one_sided_on_card(cuda_device, m, n):
-    a = _sorted_rows((m,), torch.float32, cuda_device, 5)
-    b = _sorted_rows((n,), torch.float32, cuda_device, 6)
+                                 (km.MERGE_TILE - 1, 1), (0, 0),
+                                 (km.MERGE_TILE, km.MERGE_TILE)])
+def test_merge_tile_short_and_one_sided_on_card(cuda_device, m, n, dtype):
+    a = _sorted_rows((m,), dtype, cuda_device, 5)
+    b = _sorted_rows((n,), dtype, cuda_device, 6)
     got, want = _merge_both(a, b)
     assert torch.equal(got, want)
-    assert torch.equal(got, torch.sort(torch.cat([a, b]), stable=True).values)
+
+
+@pytest.mark.parametrize("dtype,n", [(torch.float32, 3_000_001),
+                                     (torch.int64, 1 << 28)])
+def test_merge_tile_many_tiles_a_block_on_card(cuda_device, dtype, n):
+    """More tiles than the card holds blocks, so each block co-ranks and
+    merges a range of many tiles; at 2^29 int64 outputs more than the 511
+    tiles a block keeps cuts for, so the grid grows past the resident
+    blocks.  Duplicates with the dtype's extremes (and +-0.0, +-inf)."""
+    a = _extreme_groups((1, 1, n), dtype, cuda_device, 1)[0, 0]
+    b = _extreme_groups((1, 1, n + 77), dtype, cuda_device, 2)[0, 0]
+    got, want = _merge_both(a, b)
+    assert torch.equal(got, want)
 
 
 def _kway_both(runs, vals=None, lengths=None, *, cuts_from_sort=False):
@@ -437,11 +490,79 @@ def test_wide_launch_all_ties_and_sorted_runs_on_card(cuda_device):
               _payload(keys.shape, torch.int64, cuda_device))
 
 
+def _wide_ragged(g, k, w, dtype, seed, *, empty_rows=True):
+    """(g, k, w) runs with ragged int32 lengths (some rows empty), padded
+    with the dtype's max (+inf for floats) that real max keys collide
+    with, and a payload numbering the real elements group by group."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    keys = _extreme_groups((g, k, w), dtype, "cuda", seed)
+    lengths = torch.randint(0, w + 1, (g, k), generator=gen, device="cuda",
+                            dtype=torch.int32)
+    if empty_rows:
+        lengths[:, ::3] = 0
+    top = float("inf") if dtype.is_floating_point else torch.iinfo(dtype).max
+    real = torch.arange(w, device="cuda") < lengths[..., None]
+    keys = torch.where(real, keys, torch.full_like(keys, top))
+    keys = torch.sort(keys, dim=-1, stable=True).values
+    vals = torch.arange(g * k * w, device="cuda").reshape(g, k, w) * 3 - 1
+    return keys, vals, lengths, real
+
+
+@pytest.mark.parametrize("val_dtype", [None, torch.int32, torch.int64])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("g,k,w", [(1, 8, 20_000), (3, 5, 3000), (2, 64, 300),
+                                   (1, 2, 1 << 18), (4, 16, 2000)])
+def test_wide_launch_ragged_matches_plain_and_sort_on_card(cuda_device, g, k,
+                                                           w, dtype, val_dtype):
+    """The ragged form: every real element in stable order (payload too),
+    the kernel's real part bit for bit its plain version's and
+    ``torch.sort(stable=True)``'s, at out_len = k*w, the real total and
+    below it."""
+    keys, vals, lengths, real = _wide_ragged(g, k, w, dtype, g * k + w)
+    vals = None if val_dtype is None else vals.to(val_dtype)
+    totals = lengths.sum(dim=1).tolist()
+    for out_len in (k * w, max(totals), max(totals) // 2 + 1):
+        before = km.merge_kway_groups_wide.launches
+        got = km.merge_kway_groups_wide(keys, vals, lengths, out_len=out_len)
+        assert km.merge_kway_groups_wide.launches == before + 1
+        want = km.merge_kway_groups_wide_plain(keys, vals, lengths,
+                                               out_len=out_len)
+        for i in range(g):
+            n = min(out_len, totals[i])
+            flat = keys[i][real[i]]
+            order = torch.sort(flat + 0 if flat.is_floating_point() else flat,
+                               stable=True).indices[:n]
+            assert torch.equal(got[0][i, :n].view(torch.uint8),
+                               want[0][i, :n].view(torch.uint8))
+            assert torch.equal(got[0][i, :n].view(torch.uint8),
+                               flat[order].view(torch.uint8))
+            if vals is not None:
+                assert torch.equal(got[1][i, :n], want[1][i, :n])
+                assert torch.equal(got[1][i, :n], vals[i][real[i]][order])
+
+
+def test_wide_launch_ragged_all_empty_and_all_ties_on_card(cuda_device):
+    """Every row empty (nothing written, nothing read), and one key in
+    every real slot: the run order alone."""
+    keys = torch.full((2, 4, 5000), 7, device=cuda_device, dtype=torch.int32)
+    vals = torch.arange(keys.numel(), device=cuda_device).reshape(keys.shape)
+    zero = torch.zeros((2, 4), dtype=torch.int32, device=cuda_device)
+    km.merge_kway_groups_wide(keys, vals, zero)
+    lengths = torch.tensor([[5000, 1, 0, 4999], [0, 0, 0, 5000]],
+                           dtype=torch.int32, device=cuda_device)
+    got_k, got_v = km.merge_kway_groups_wide(keys, vals, lengths)
+    for i in range(2):
+        real = torch.arange(5000, device=cuda_device) < lengths[i][:, None]
+        n = int(lengths[i].sum())
+        assert torch.equal(got_v[i, :n], vals[i][real])
+        assert bool((got_k[i, :n] == 7).all())
+
+
 def test_merge_runs_ranked_routes_by_shape_on_card(cuda_device, monkeypatch):
     """On the card every shape runs a kernel: groups that fit the grouped
-    launch's tile go to it, wider ones to the wide launch, and no shape
-    reaches the torch-ops merge; a key dtype neither kernel takes raises,
-    and so do more runs a group than the wide launch takes."""
+    launch's tile go to it, wider ones to the wide launch, wider ones of
+    more than 64 runs to sub-groups and a merge of those, and no shape
+    reaches the torch-ops merge; a key dtype neither kernel takes raises."""
     from repro_torch.core import mergesort
 
     def refuse(*args):
@@ -463,16 +584,91 @@ def test_merge_runs_ranked_routes_by_shape_on_card(cuda_device, monkeypatch):
         mergesort.merge_runs_ranked(small, None)
     with pytest.raises(ValueError, match="keys must be one of"):
         mergesort.merge_runs_ranked(small.repeat(1, 1, 1000), None)
-    many = _sorted_groups((1, km.WIDE_MAX_RUNS + 1, 100), torch.int32,
-                          cuda_device, 4)
-    with pytest.raises(ValueError, match=f"k must be in \\[1, {km.WIDE_MAX_RUNS}\\]"):
-        mergesort.merge_runs_ranked(many, None)
     assert counts() == (3, 2)
     x = torch.randint(0, 100, (100_003,), device=cuda_device,
                       dtype=torch.int32)
     assert torch.equal(mergesort.merge_sort(x), torch.sort(x, stable=True).values)
     plan = mergesort.sort_plan(x.numel())
     assert counts() == (3 + 1, 2 + len(plan) - 1)  # the leaf, then wide passes
+
+
+@pytest.mark.parametrize("g,k,w", [(2, 65, 100), (1, 128, 50), (3, 128, 40),
+                                   (2, 200, 33), (1, 4097, 2)])
+def test_more_than_64_runs_merge_on_card(cuda_device, monkeypatch, g, k, w):
+    """Groups wider than the grouped launch's tile with more runs than the
+    wide launch takes: sub-groups of at most 64 runs, then their merge,
+    all on kernels; keys and payload equal the CPU's and a stable sort's."""
+    from repro_torch.core import mergesort
+
+    def refuse(*args):
+        raise AssertionError("merge_runs_plain ran on the cuda backend")
+
+    keys = _extreme_groups((g, k, w), torch.int32, cuda_device, k)
+    vals = torch.arange(g * k * w, device=cuda_device).reshape(g, k, w)
+    cpu_k, cpu_v = mergesort.merge_runs_ranked(keys.cpu(), vals.cpu())
+    monkeypatch.setattr(mergesort, "merge_runs_plain", refuse)
+    before = _launch_counts()
+    got_k, got_v = mergesort.merge_runs_ranked(keys, vals)
+    after = _launch_counts()
+    assert after["merge_kway_tile"] == before["merge_kway_tile"]
+    assert after["merge_kway_groups_wide"] > before["merge_kway_groups_wide"]
+    assert torch.equal(got_k.cpu(), cpu_k) and torch.equal(got_v.cpu(), cpu_v)
+    order = torch.sort(keys.reshape(g, -1), dim=1, stable=True)
+    assert torch.equal(got_k, order.values)
+    assert torch.equal(got_v, torch.gather(vals.reshape(g, -1), 1, order.indices))
+
+
+@pytest.mark.parametrize("fanout", [128, 256])
+def test_sorts_at_fanout_128_on_card(cuda_device, monkeypatch, fanout):
+    """``sort_key_val`` and ``merge_sort`` past 2^18 keys at a fan-out
+    above 64: their wide passes merge 128 or 256 runs a group."""
+    from repro_torch.core import mergesort
+
+    def refuse(*args):
+        raise AssertionError("merge_runs_plain ran on the cuda backend")
+
+    gen = torch.Generator(device=cuda_device).manual_seed(fanout)
+    n = (1 << 20) + 12_345
+    x = torch.randint(-1000, 1000, (n,), generator=gen, device=cuda_device,
+                      dtype=torch.int32)
+    x[x > 990] = torch.iinfo(torch.int32).max
+    idx = torch.arange(n, device=cuda_device, dtype=torch.int32)
+    assert any(k > km.WIDE_MAX_RUNS and k * w > km.GROUPS_TILE
+               for _, k, w in mergesort.sort_plan(n, fanout))
+    cpu_k, cpu_v = mergesort.sort_key_val(x.cpu(), idx.cpu(), fanout=fanout)
+    monkeypatch.setattr(mergesort, "merge_runs_plain", refuse)
+    got_k, got_v = mergesort.sort_key_val(x, idx, fanout=fanout)
+    order = torch.sort(x, stable=True)
+    assert torch.equal(got_k, order.values) and torch.equal(got_v.long(), order.indices)
+    assert torch.equal(got_k.cpu(), cpu_k) and torch.equal(got_v.cpu(), cpu_v)
+    assert torch.equal(mergesort.merge_sort(x, fanout=fanout), order.values)
+
+
+def test_topk_at_fanout_128_on_card(cuda_device, monkeypatch):
+    """The merge top-k of qwen3's 151,936 logits at k = 50 and fan-out 128:
+    a round merges 128 runs of 50 (6,400 keys, past the grouped launch's
+    tile), on kernels; indices equal ``torch.topk``'s order, a stable
+    sort's and the CPU's."""
+    from repro_torch.core import mergesort
+    from repro_torch.core.topk import merge_topk_batch
+
+    def refuse(*args):
+        raise AssertionError("merge_runs_plain ran on the cuda backend")
+
+    g = torch.Generator(device=cuda_device).manual_seed(128)
+    x = torch.randint(-30, 30, (4, 151936), generator=g,
+                      device=cuda_device).float()
+    x[:, 5::97] = float("inf")
+    cv, ci = merge_topk_batch(x.cpu(), 50, fanout=128)
+    monkeypatch.setattr(mergesort, "merge_runs_plain", refuse)
+    before = _launch_counts()
+    vals, idx = merge_topk_batch(x, 50, fanout=128)
+    assert _launch_counts()["merge_kway_groups_wide"] > before["merge_kway_groups_wide"]
+    assert torch.equal(idx.cpu(), ci) and torch.equal(vals.cpu(), cv)
+    order = torch.sort(-(x + 0.0), dim=1, stable=True).indices[:, :50]
+    assert torch.equal(idx.long(), order)
+    top = torch.topk(x, 50, dim=1)
+    assert torch.equal(vals, top.values)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -591,12 +787,12 @@ def _sharded_sort_rank(rank, world, port, n, queue):
                           dtype=torch.int32)
         x[x > 40] = torch.iinfo(torch.int32).max
         w = n // world
-        km.merge_kway_tile.launches = km.merge_kway_tile_groups.launches = 0
+        km.merge_kway_groups_wide.launches = km.merge_kway_tile_groups.launches = 0
         out = {s: sharded_sort(x[rank * w:(rank + 1) * w], dist.group.WORLD,
                                strategy=s) for s in ("exchange", "allgather")}
         want = torch.sort(x, stable=True).values[rank * w:(rank + 1) * w]
         queue.put((rank, {s: bool(torch.equal(o, want)) for s, o in out.items()},
-                   km.merge_kway_tile.launches,
+                   km.merge_kway_groups_wide.launches,
                    km.merge_kway_tile_groups.launches))
     finally:
         dist.destroy_process_group()
@@ -605,7 +801,7 @@ def _sharded_sort_rank(rank, world, port, n, queue):
 def test_sharded_sort_two_gloo_ranks_on_card(cuda_device):
     """Two gloo ranks share the card: each rank's block of the sharded
     sort equals ``torch.sort(stable=True)``'s, and both ranks launched the
-    local sort's grouped kernel and the ragged merge's ``merge_kway_tile``."""
+    local sort's grouped kernel and the ragged merge's wide launch."""
     import socket
 
     import torch.multiprocessing as mp
@@ -628,6 +824,6 @@ def test_sharded_sort_two_gloo_ranks_on_card(cuda_device):
             if p.is_alive():
                 p.kill()
     assert [p.exitcode for p in procs] == [0, 0]
-    for _, equal, kway, groups in got:
+    for _, equal, wide, groups in got:
         assert all(equal.values()), equal
-        assert kway > 0 and groups > 0
+        assert wide > 0 and groups > 0

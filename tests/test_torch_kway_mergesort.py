@@ -272,3 +272,93 @@ def test_merge_runs_plain_tree_matches_reference(g, k, w):
         keys.reshape(g, -1), order, 1))
     np.testing.assert_array_equal(gv.numpy(), np.take_along_axis(
         vals.reshape(g, -1), order, 1))
+
+
+# --- groups of more runs than the wide launch takes: merge_runs_split ---------
+
+ref_merge_runs_ranked = jax.jit(ref_ms.merge_runs_ranked)
+
+
+def _many_runs(g, k, w, seed):
+    """(g, k, w) sorted int32 runs, duplicate-heavy, each ending in a real
+    dtype-max key (which ties with the split's sentinel runs), and a
+    payload."""
+    rng = np.random.default_rng(seed)
+    keys = np.sort(rng.integers(-3, 3, (g, k, w)), axis=2).astype(np.int32)
+    keys[..., -1:] = np.iinfo(np.int32).max
+    vals = rng.integers(0, 1 << 20, (g, k, w)).astype(np.int32)
+    return keys, vals
+
+
+@pytest.mark.parametrize("g,k,w,limit", [(2, 128, 5, 64), (2, 128, 5, 3),
+                                         (1, 200, 3, 64), (1, 200, 3, 7),
+                                         (3, 65, 9, 64), (2, 256, 2, 64)])
+def test_merge_runs_split_matches_reference(g, k, w, limit):
+    """Sub-groups of at most ``limit`` adjacent runs merged by
+    ``merge_runs_plain``, then their results again (recursively below a
+    limit of 3 or 7), the last sub-group padded with sentinel runs where
+    ``limit`` does not divide ``k``: against a stable numpy sort and the
+    one-level torch-ops merge, and at 128 and 200 runs the reference's
+    rank merge (its compile grows with k^2)."""
+    keys, vals = _many_runs(g, k, w, k * limit)
+    calls = []
+
+    def merge(kk, vv):
+        calls.append(kk.shape[1])
+        return mergesort.merge_runs_plain(kk, vv)
+
+    gk, gv = mergesort.merge_runs_split(torch.from_numpy(keys),
+                                        torch.from_numpy(vals), merge, limit)
+    assert max(calls) <= limit
+    order = np.argsort(keys.reshape(g, -1), axis=1, kind="stable")
+    np.testing.assert_array_equal(gk.numpy(), np.take_along_axis(
+        keys.reshape(g, -1), order, 1))
+    np.testing.assert_array_equal(gv.numpy(), np.take_along_axis(
+        vals.reshape(g, -1), order, 1))
+    pk, pv = mergesort.merge_runs_plain(torch.from_numpy(keys), torch.from_numpy(vals))
+    assert torch.equal(gk, pk) and torch.equal(gv, pv)
+    if k in (128, 200):
+        wk, wv = ref_merge_runs_ranked(jnp.asarray(keys), jnp.asarray(vals))
+        np.testing.assert_array_equal(gk.numpy(), np.asarray(wk))
+        np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
+
+
+@pytest.mark.parametrize("fanout,n", [(128, 3 * 4096 + 77), (256, 5 * 4096 + 3)])
+def test_sort_through_the_split_matches_reference(monkeypatch, fanout, n):
+    """The card's route on the CPU: ``merge_runs_ranked`` takes the kernels'
+    branch (its dispatch patched to ``cuda``; on CPU tensors every kernel
+    wrapper runs its plain version), with a leaf of 16 and a grouped tile of
+    64, so that the fan-out pass of 128 or 256 runs goes to the wide
+    launch's route and past its 64 runs through ``merge_runs_split``.
+    ``sort_key_val`` and ``merge_sort`` against numpy, and at fan-out 128
+    the reference's jitted ``sort_key_val`` (at 256 runs its compile takes
+    minutes)."""
+    from repro_torch.kernels import merge as km
+
+    monkeypatch.setattr(mergesort, "dispatch", lambda *args, **kw: "cuda")
+    monkeypatch.setattr(mergesort, "LEAF_WIDTH", 16)
+    monkeypatch.setattr(km, "GROUPS_TILE", 64)
+    split = []
+    real_split = mergesort.merge_runs_split
+
+    def spy(keys, vals, merge, limit):
+        split.append((keys.shape[1], limit))
+        return real_split(keys, vals, merge, limit)
+
+    monkeypatch.setattr(mergesort, "merge_runs_split", spy)
+    rng = np.random.default_rng(fanout)
+    x = rng.integers(-50, 50, n).astype(np.int32)
+    x[x > 45] = np.iinfo(np.int32).max
+    idx = np.arange(n, dtype=np.int32)
+    gk, gv = mergesort.sort_key_val(torch.from_numpy(x), torch.from_numpy(idx),
+                                    fanout=fanout)
+    assert (fanout, km.WIDE_MAX_RUNS) in split
+    order = np.argsort(x, kind="stable")
+    np.testing.assert_array_equal(gk.numpy(), x[order])
+    np.testing.assert_array_equal(gv.numpy(), order)
+    np.testing.assert_array_equal(
+        mergesort.merge_sort(torch.from_numpy(x), fanout=fanout).numpy(), x[order])
+    if fanout == 128:
+        wk, wv = ref_sort_key_val(jnp.asarray(x), jnp.asarray(idx), fanout=fanout)
+        np.testing.assert_array_equal(gk.numpy(), np.asarray(wk))
+        np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
