@@ -169,8 +169,10 @@ class LockstepDecoder:
         """``prompts`` ``(batch, prompt_len)`` -> ``(batch, n_tokens)``
         generated token ids; the cache ends at ``prompt_len + n_tokens``.
         The prompt feed runs in the ``serve.prefill`` host span and each
-        generated step (sample, then decode) in ``step_span("decode", i)``
-        with the step label set and its tokens recorded
+        generated step (sample, then decode) in ``step_span("decode", i)``;
+        every model step sits in a ``serve.decode`` span and every
+        sampling, key hash included, in a ``serve.sample`` span.  Each
+        generated step has the step label set and its tokens recorded
         (``serve.sampled_tokens``, a snapshot on the device); obs is
         flushed after each step, then ``after_step(i + 1)`` is called if
         given."""
@@ -178,17 +180,20 @@ class LockstepDecoder:
         logits = None
         with obs.host_span("serve.prefill"):
             for t in range(tokens.shape[1]):
-                logits = self._decode(tokens[:, t:t + 1])
+                with obs.span("serve.decode"):
+                    logits = self._decode(tokens[:, t:t + 1])
         rows = torch.arange(self.batch, device=self.device)
         out = []
         for i in range(n_tokens):
             obs.set_step(i)
             with obs.step_span("decode", i):
-                nxt = self._sample(request_keys(
-                    self.seed, rows, torch.full_like(rows, i)), logits)
+                with obs.span("serve.sample"):
+                    nxt = self._sample(request_keys(
+                        self.seed, rows, torch.full_like(rows, i)), logits)
                 out.append(nxt)
                 obs.gauge("serve.sampled_tokens", nxt, batch=self.batch)
-                logits = self._decode(nxt[:, None].long())
+                with obs.span("serve.decode"):
+                    logits = self._decode(nxt[:, None].long())
             if obs.enabled():
                 obs.flush()
             if after_step is not None:

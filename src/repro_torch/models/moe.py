@@ -33,6 +33,10 @@ into the token rows instead; the two agree within float32 rounding).
 GShard-style local dispatch (``dispatch_groups > 1``) fills per-group
 capacity slots and swaps the (group, expert) slot axes with
 ``distributed.exchange.slot_transpose``, as the reference does.
+
+Under a profiler :func:`moe_apply` records the spans ``moe.route``,
+``moe.dispatch`` (the sort, the bounds and the group sizes' host read),
+``moe.experts`` and ``moe.combine`` (``repro_torch.obs``).
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ import torch
 import torch.nn.functional as F
 from torch._subclasses.fake_tensor import is_fake
 
+from repro_torch import obs
 from repro_torch.core.mergesort import sort_key_val
 from repro_torch.core.topk import merge_topk_batch
 from repro_torch.distributed.exchange import slot_transpose
@@ -251,21 +256,24 @@ def _dropless_moe(params, xt, w, experts, n_experts, top_k):
     through the unique ``sorted_idx`` and sums over the choice axis."""
     t, d = xt.shape
     dt = xt.dtype
-    _, sorted_idx, group_sizes = moe_dispatch_dropless(experts, n_experts)
-    sorted_idx = sorted_idx.long()
-    segments = _segments(group_sizes, sorted_idx.shape[0])
-    xs = xt[sorted_idx // top_k]  # (T*k, d) rows in expert order
-    ws = [params[n].to(dt) for n in ("w_gate", "w_up", "w_down")]
-    if is_dtensor(ws[0]):
-        ys = _segments_ep(xs, ws, segments, _expert_ffn)
-    else:
-        gate = _segment_gemm(xs, ws[0], segments)
-        up = _segment_gemm(xs, ws[1], segments)
-        ys = _segment_gemm(F.silu(gate) * up, ws[2], segments)
-    token_w = w.reshape(-1)[sorted_idx].to(dt)
-    out = xt.new_zeros((t * top_k, d))
-    out[sorted_idx] = ys * token_w[:, None]
-    return out.reshape(t, top_k, d).sum(dim=1)
+    with obs.span("moe.dispatch"):
+        _, sorted_idx, group_sizes = moe_dispatch_dropless(experts, n_experts)
+        sorted_idx = sorted_idx.long()
+        segments = _segments(group_sizes, sorted_idx.shape[0])
+        xs = xt[sorted_idx // top_k]  # (T*k, d) rows in expert order
+    with obs.span("moe.experts"):
+        ws = [params[n].to(dt) for n in ("w_gate", "w_up", "w_down")]
+        if is_dtensor(ws[0]):
+            ys = _segments_ep(xs, ws, segments, _expert_ffn)
+        else:
+            gate = _segment_gemm(xs, ws[0], segments)
+            up = _segment_gemm(xs, ws[1], segments)
+            ys = _segment_gemm(F.silu(gate) * up, ws[2], segments)
+    with obs.span("moe.combine"):
+        token_w = w.reshape(-1)[sorted_idx].to(dt)
+        out = xt.new_zeros((t * top_k, d))
+        out[sorted_idx] = ys * token_w[:, None]
+        return out.reshape(t, top_k, d).sum(dim=1)
 
 
 def _shared(params, x, t, d):
@@ -338,26 +346,31 @@ def _capacity_moe(params, xt, w, experts, n_experts, top_k, capacity, g):
     """
     t, d = xt.shape
     dt = xt.dtype
-    group_of = torch.arange(t, dtype=torch.int32, device=xt.device) // (t // g)
-    ex_in, combine = _dispatch_combine_one_group(
-        xt, w, experts + group_of[:, None] * n_experts, g * n_experts, top_k,
-        capacity)
-    # groups on the batch axes, experts on the EP axis: with a mesh, the
-    # swap is the balanced all_to_all (equal bytes per peer)
     ba = get_batch_axes()
     constrain = constrain_spec if ba is not None else None
-    ex_g = slot_transpose(ex_in.reshape(g, n_experts, capacity, d),
-                          constrain=constrain, in_spec=(ba, None, None, None),
-                          out_spec=("model", ba, None, None))
-    ex_g = ex_g.reshape(n_experts, g * capacity, d)  # (E, g*C, d)
-    gate = torch.bmm(ex_g, params["w_gate"].to(dt))
-    up = torch.bmm(ex_g, params["w_up"].to(dt))
-    ex_out = torch.bmm(F.silu(gate) * up, params["w_down"].to(dt))
-    ex_out = slot_transpose(ex_out.reshape(n_experts, g, capacity, d),
-                            constrain=constrain,
-                            in_spec=("model", ba, None, None),
-                            out_spec=(ba, None, None, None))
-    return combine(ex_out.reshape(g * n_experts, capacity, d))
+    with obs.span("moe.dispatch"):
+        group_of = torch.arange(t, dtype=torch.int32,
+                                device=xt.device) // (t // g)
+        ex_in, combine = _dispatch_combine_one_group(
+            xt, w, experts + group_of[:, None] * n_experts, g * n_experts,
+            top_k, capacity)
+        # groups on the batch axes, experts on the EP axis: with a mesh,
+        # the swap is the balanced all_to_all (equal bytes per peer)
+        ex_g = slot_transpose(ex_in.reshape(g, n_experts, capacity, d),
+                              constrain=constrain,
+                              in_spec=(ba, None, None, None),
+                              out_spec=("model", ba, None, None))
+        ex_g = ex_g.reshape(n_experts, g * capacity, d)  # (E, g*C, d)
+    with obs.span("moe.experts"):
+        gate = torch.bmm(ex_g, params["w_gate"].to(dt))
+        up = torch.bmm(ex_g, params["w_up"].to(dt))
+        ex_out = torch.bmm(F.silu(gate) * up, params["w_down"].to(dt))
+    with obs.span("moe.combine"):
+        ex_out = slot_transpose(ex_out.reshape(n_experts, g, capacity, d),
+                                constrain=constrain,
+                                in_spec=("model", ba, None, None),
+                                out_spec=(ba, None, None, None))
+        return combine(ex_out.reshape(g * n_experts, capacity, d))
 
 
 def moe_apply(params, x: torch.Tensor, *, n_experts: int, top_k: int,
@@ -384,8 +397,9 @@ def moe_apply(params, x: torch.Tensor, *, n_experts: int, top_k: int,
     dt = x.dtype
     t = b * s
     xt = x.reshape(t, d)
-    logits = xt @ params["router"].to(dt)
-    w, experts = route_topk(logits, top_k, scoring=scoring)
+    with obs.span("moe.route"):
+        logits = xt @ params["router"].to(dt)
+        w, experts = route_topk(logits, top_k, scoring=scoring)
 
     if dispatch == "dropless":
         out = _dropless_moe(params, xt, w, experts, n_experts, top_k)
@@ -399,7 +413,8 @@ def moe_apply(params, x: torch.Tensor, *, n_experts: int, top_k: int,
         out = _capacity_moe(params, xt, w, experts, n_experts, top_k,
                             capacity, g)
     if "shared" in params:
-        out = out + _shared(params, x, t, d)
+        with obs.span("moe.combine"):
+            out = out + _shared(params, x, t, d)
     return out.reshape(b, s, d)
 
 

@@ -34,6 +34,9 @@ The decode steps update the cache tensors in place (the reference returns
 new ones): the ragged step writes slot ``s``'s entry at position
 ``lengths[s]`` of its own cache rows, the lock-step one every row's at the
 shared ``length``; an SSM layer overwrites its conv and SSM states.
+Under a profiler each piece of a step records its span (``repro_torch.obs``):
+``model.embed``, ``model.attn``, ``model.ssm`` (with ``ssm.state_write``),
+``model.mlp``, ``model.moe`` and ``model.head``.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
@@ -550,21 +554,23 @@ def _embed_and_tables(cfg, params, cache, tokens, pos):
     or scalar tensor) and the rope tables for the cache's ``max_len``."""
     dtype = _dtype(cfg.dtype)
     dev = tokens.device
-    x = L.embed(params["embed"], tokens, dtype)
-    max_len = _cache_max_len(cache)
-    if cfg.pos_emb == "sinusoidal":
-        table = _sinusoid_table(max_len + 1, cfg.d_model, dtype, dev)
-        return x + table[pos].reshape(-1, 1, cfg.d_model), None, None
-    hd = cfg.qk_rope_head_dim if cfg.mla else cfg.resolved_head_dim
-    cos, sin = _rope_tables(hd, max_len + 1, cfg.rope_theta, dev)
-    return x, cos, sin
+    with obs.span("model.embed"):
+        x = L.embed(params["embed"], tokens, dtype)
+        max_len = _cache_max_len(cache)
+        if cfg.pos_emb == "sinusoidal":
+            table = _sinusoid_table(max_len + 1, cfg.d_model, dtype, dev)
+            return x + table[pos].reshape(-1, 1, cfg.d_model), None, None
+        hd = cfg.qk_rope_head_dim if cfg.mla else cfg.resolved_head_dim
+        cos, sin = _rope_tables(hd, max_len + 1, cfg.rope_theta, dev)
+        return x, cos, sin
 
 
 def _logits(cfg, params, x):
-    h = L.rmsnorm(params["final_norm"], x)
-    table = params["embed" if cfg.tie_embeddings else "unembed"]["table"]
-    logits = torch.einsum("bsd,vd->bsv", h, table.to(_dtype(cfg.dtype)))
-    return logits[:, 0].float()
+    with obs.span("model.head"):
+        h = L.rmsnorm(params["final_norm"], x)
+        table = params["embed" if cfg.tie_embeddings else "unembed"]["table"]
+        logits = torch.einsum("bsd,vd->bsv", h, table.to(_dtype(cfg.dtype)))
+        return logits[:, 0].float()
 
 
 def _layer_list(cfg, params):
@@ -575,16 +581,18 @@ def _layer_list(cfg, params):
 
 
 def _ffn_block(cfg, lp, x, *, moe_layer):
-    h = L.rmsnorm(lp["ln2"], x)
-    if moe_layer:
-        ff = moe_mod.moe_apply(
-            lp["mlp"], h, n_experts=cfg.n_experts, top_k=cfg.moe_top_k,
-            capacity_factor=cfg.capacity_factor, scoring=cfg.router_scoring,
-            dispatch_groups=cfg.moe_dispatch_groups,
-            dispatch=cfg.moe_dispatch)
-    else:
-        ff = L.mlp(lp["mlp"], h, kind=cfg.mlp_kind)
-    return x + ff
+    with obs.span("model.moe" if moe_layer else "model.mlp"):
+        h = L.rmsnorm(lp["ln2"], x)
+        if moe_layer:
+            ff = moe_mod.moe_apply(
+                lp["mlp"], h, n_experts=cfg.n_experts, top_k=cfg.moe_top_k,
+                capacity_factor=cfg.capacity_factor,
+                scoring=cfg.router_scoring,
+                dispatch_groups=cfg.moe_dispatch_groups,
+                dispatch=cfg.moe_dispatch)
+        else:
+            ff = L.mlp(lp["mlp"], h, kind=cfg.mlp_kind)
+        return x + ff
 
 
 def _shard_offset(t, mesh, dim: int) -> int:
@@ -653,18 +661,19 @@ def decode_step_ragged(cfg: ModelConfig, params, cache: Cache,
     idx = lengths.long()
     positions = lengths[:, None]  # (b, 1): per-slot rope positions
     for i, (lp, moe_layer) in enumerate(_layer_list(cfg, params)):
-        h = L.rmsnorm(lp["ln1"], x)
-        q, k, v = attn_mod.qkv_project(lp["attn"], h, cos, sin, positions,
-                                       qk_norm=cfg.qk_norm)
-        # per-slot scatter: slot b's token lands at its own position
-        if L.is_dtensor(kc):
-            _write_rows(kc[i], idx, k[:, 0].to(kc.dtype))
-            _write_rows(vc[i], idx, v[:, 0].to(vc.dtype))
-        else:
-            kc[i, rows, idx] = k[:, 0].to(kc.dtype)
-            vc[i, rows, idx] = v[:, 0].to(vc.dtype)
-        o = attn_mod.decode_attention(q, kc[i], vc[i], lengths + 1)
-        x = x + attn_mod.attention_output(lp["attn"], o, x.dtype)
+        with obs.span("model.attn"):
+            h = L.rmsnorm(lp["ln1"], x)
+            q, k, v = attn_mod.qkv_project(lp["attn"], h, cos, sin, positions,
+                                           qk_norm=cfg.qk_norm)
+            # per-slot scatter: slot b's token lands at its own position
+            if L.is_dtensor(kc):
+                _write_rows(kc[i], idx, k[:, 0].to(kc.dtype))
+                _write_rows(vc[i], idx, v[:, 0].to(vc.dtype))
+            else:
+                kc[i, rows, idx] = k[:, 0].to(kc.dtype)
+                vc[i, rows, idx] = v[:, 0].to(vc.dtype)
+            o = attn_mod.decode_attention(q, kc[i], vc[i], lengths + 1)
+            x = x + attn_mod.attention_output(lp["attn"], o, x.dtype)
         x = _ffn_block(cfg, lp, x, moe_layer=moe_layer)
     return _logits(cfg, params, x), Cache("gqa", cache.data, lengths + 1)
 
@@ -702,18 +711,22 @@ def _decode_mla(cfg, params, data, x, cos, sin, positions, pos):
                 qk_rope_head_dim=cfg.qk_rope_head_dim)
     ckv, kr = data
     for i, (lp, moe_layer) in enumerate(_layer_list(cfg, params)):
-        h = L.rmsnorm(lp["ln1"], x)
-        q_nope, q_rope, c_kv, k_rope = mla_mod.mla_latents(
-            lp["attn"], h, cos, sin, positions, dims)
-        if L.is_dtensor(ckv):
-            _write_rows(ckv[i], at.expand(x.shape[0]), c_kv[:, 0].to(ckv.dtype))
-            _write_rows(kr[i], at.expand(x.shape[0]), k_rope[:, 0].to(kr.dtype))
-        else:
-            ckv[i].index_copy_(1, at, c_kv.to(ckv.dtype))
-            kr[i].index_copy_(1, at, k_rope.to(kr.dtype))
-        o = mla_mod.mla_attention_decode(lp["attn"], q_nope, q_rope, dims,
-                                         ckv[i], kr[i], pos + 1)
-        x = _ffn_block(cfg, lp, x + o, moe_layer=moe_layer)
+        with obs.span("model.attn"):
+            h = L.rmsnorm(lp["ln1"], x)
+            q_nope, q_rope, c_kv, k_rope = mla_mod.mla_latents(
+                lp["attn"], h, cos, sin, positions, dims)
+            if L.is_dtensor(ckv):
+                _write_rows(ckv[i], at.expand(x.shape[0]),
+                            c_kv[:, 0].to(ckv.dtype))
+                _write_rows(kr[i], at.expand(x.shape[0]),
+                            k_rope[:, 0].to(kr.dtype))
+            else:
+                ckv[i].index_copy_(1, at, c_kv.to(ckv.dtype))
+                kr[i].index_copy_(1, at, k_rope.to(kr.dtype))
+            o = mla_mod.mla_attention_decode(lp["attn"], q_nope, q_rope, dims,
+                                             ckv[i], kr[i], pos + 1)
+            x = x + o
+        x = _ffn_block(cfg, lp, x, moe_layer=moe_layer)
     return x
 
 
@@ -725,12 +738,14 @@ def _decode_ssm(cfg, params, data, x, cos, sin, positions, pos):
     meta = mamba_meta(cfg)
     conv_c, st_c = data[:2]
     for i, lp in enumerate(params["layers"]):
-        h = L.rmsnorm(lp["ln"], x)
-        out, (conv_n, st_n) = ssm_mod.mamba2_forward(
-            lp["mamba"], meta, h, state=(conv_c[i], st_c[i]))
-        conv_c[i].copy_(conv_n)
-        st_c[i].copy_(st_n)
-        x = x + out
+        with obs.span("model.ssm"):
+            h = L.rmsnorm(lp["ln"], x)
+            out, (conv_n, st_n) = ssm_mod.mamba2_forward(
+                lp["mamba"], meta, h, state=(conv_c[i], st_c[i]))
+            with obs.span("ssm.state_write"):
+                conv_c[i].copy_(conv_n)
+                st_c[i].copy_(st_n)
+            x = x + out
         if cfg.attn_every and (i + 1) % cfg.attn_every == 0:
             app = i // cfg.attn_every
             x = _shared_attention(cfg, params["shared_attn"], data[2][app],
@@ -742,15 +757,16 @@ def _shared_attention(cfg, lp, kc, vc, x, cos, sin, positions, pos):
     """The hybrid's shared block (GQA attention, then the MLP) at the
     shared position ``pos``, writing its k/v into ``kc``/``vc``."""
     at = pos.reshape(1).long()
-    h = L.rmsnorm(lp["ln1"], x)
-    q, k, v = attn_mod.qkv_project(lp["attn"], h, cos, sin, positions,
-                                   qk_norm=cfg.qk_norm)
-    if L.is_dtensor(kc):
-        _write_rows(kc, at.expand(x.shape[0]), k[:, 0].to(kc.dtype))
-        _write_rows(vc, at.expand(x.shape[0]), v[:, 0].to(vc.dtype))
-    else:
-        kc.index_copy_(1, at, k.to(kc.dtype))
-        vc.index_copy_(1, at, v.to(vc.dtype))
-    o = attn_mod.decode_attention(q, kc, vc, pos + 1)
-    x = x + attn_mod.attention_output(lp["attn"], o, x.dtype)
+    with obs.span("model.attn"):
+        h = L.rmsnorm(lp["ln1"], x)
+        q, k, v = attn_mod.qkv_project(lp["attn"], h, cos, sin, positions,
+                                       qk_norm=cfg.qk_norm)
+        if L.is_dtensor(kc):
+            _write_rows(kc, at.expand(x.shape[0]), k[:, 0].to(kc.dtype))
+            _write_rows(vc, at.expand(x.shape[0]), v[:, 0].to(vc.dtype))
+        else:
+            kc.index_copy_(1, at, k.to(kc.dtype))
+            vc.index_copy_(1, at, v.to(vc.dtype))
+        o = attn_mod.decode_attention(q, kc, vc, pos + 1)
+        x = x + attn_mod.attention_output(lp["attn"], o, x.dtype)
     return _ffn_block(cfg, lp, x, moe_layer=False)

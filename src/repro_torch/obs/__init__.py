@@ -4,11 +4,16 @@
 Enable with ``obs.enable(metrics_dir=...)`` (JSONL under that directory)
 or ``obs.enable(sink=...)`` / ``obs.capture()`` (in memory, tests).  While
 disabled -- the default -- every record point returns before it touches
-its arguments and every span is an empty context, so instrumented code
-dispatches no extra tensor operation (``tests/test_torch_obs.py`` counts
-them).  While enabled, record points snapshot their tensors on the device
-and never wait for it; ``obs.flush()`` moves the snapshots to the host and
-writes the records (``repro_torch.obs.registry``).
+its arguments, so instrumented code dispatches no extra tensor operation
+(``tests/test_torch_obs.py`` counts them).  While enabled, record points
+snapshot their tensors on the device and never wait for it;
+``obs.flush()`` moves the snapshots to the host and writes the records
+(``repro_torch.obs.registry``).
+
+Spans have a switch of their own: the profiler's on-flag
+(``torch.autograd.profiler._is_profiler_enabled``).  While a ``torch.profiler`` records, every span is
+a ``record_function`` annotation in its trace, whether obs is on or off;
+otherwise every span is one shared null context that dispatches nothing.
 
 JSONL schema (one object per line), the reference's byte for byte except
 ``ts``::
@@ -74,12 +79,36 @@ Metrics catalog -- the record points the port has:
 ``obs.profile_started`` / ``obs.profile_stopped`` events: the profiler's
                              trace window (``--profile-steps``).
 
-Spans: ``repro.stable_merge``, ``repro.stable_merge_kway``,
-``repro.merge_window``, ``repro.stable_sort`` (kernel dispatch) and
-``repro.merge_kway`` sit inside ``obs.span``; ``repro.external_sort`` and
-the launcher's ``serve.prefill`` inside ``obs.host_span``; each decode
-step inside ``obs.step_span("decode", i)``.
+== Spans (recorded only while a profiler records) ==
+``repro.stable_merge``, ``repro.stable_merge_kway``, ``repro.merge_window``,
+``repro.stable_sort`` (kernel dispatch) and ``repro.merge_kway`` sit
+inside ``obs.span``; ``repro.external_sort`` and the launcher's
+``serve.prefill`` inside ``obs.host_span``; each generated step of the
+launchers inside ``obs.step_span("decode", i)``.  Inside a decode step,
+on both serving paths (``LockstepDecoder``, ``DecodeEngine``):
 
+``serve.decode``             one model step (``decode_step``/``_ragged``).
+``serve.sample``             one step's sampling: the key hash and the
+                             sampler.
+``sample.topk``              a sampler's merge tournament: one
+                             ``merge_topk`` a row (per-request forms) or
+                             one ``batched_topk`` (batched forms).
+``sample.draw``              softmax, nucleus cut, Gumbel draw, gather.
+``model.embed``              embedding and rope or position tables.
+``model.attn``               one layer's attention with its cache write
+                             (gqa, MLA, a hybrid's shared block).
+``model.ssm``                one Mamba2 layer and its state write-back;
+``ssm.state_write``          inside it, the two copies into the cache.
+``model.mlp``                one dense FFN; ``model.moe`` one MoE layer,
+                             inside it ``moe.route`` (router product and
+                             top-k), ``moe.dispatch`` (assignment sort,
+                             bounds, the group sizes' host read),
+                             ``moe.experts`` (the expert products) and
+                             ``moe.combine`` (weights, scatter, sum over
+                             choices, shared experts).
+``model.head``               final norm and unembedding.
+
+== Collective traffic of a traced step ==
 ``hlo.collectives``          event: the collective traffic counted on a
                              traced step (``attach_hlo_report``).
 ``hlo.report_failed``        event: attach_hlo_report swallowed an

@@ -1,22 +1,29 @@
 """Profiler spans and the trace dump (torch port of ``repro.obs.trace``).
 
-Three span flavours, all empty contexts while obs is disabled (so the
-instrumented code dispatches nothing more on the off path):
+Three span flavours, each a ``torch.profiler.record_function`` while a
+profiler records (``torch.autograd.profiler._is_profiler_enabled``, the
+profiler's own on-flag) and one shared null context otherwise, whether
+obs is on or off.  So a span lands in the same kineto trace as the device
+operations, on one clock, and a device operation's launch falls inside
+the span that was open when it was launched; with no profiler a span
+makes no generator, no annotation and no tensor operation:
 
-* :func:`span` -- a subsystem boundary (``repro.merge_kway``, kernel
-  dispatch): ``torch.profiler.record_function``, which groups the
-  operations inside it in the profiler's views;
+* :func:`span` -- a layer or subsystem boundary (``serve.decode``,
+  ``model.ssm``, ``moe.dispatch``, ``repro.merge_kway``);
 * :func:`host_span` -- a host region (``serve.prefill``, the external
   sort's loop): the same annotation on the host timeline;
 * :func:`step_span` -- the launcher loop marker, named ``<name>#<step>``
   as the profiler names its own steps.
 
+The metric record points keep ``obs.enabled()`` as their switch; a span
+does not read it.
+
 Plus the opt-in trace dump (:func:`start_profile` / :func:`stop_profile`,
 ``--profile-steps`` on the launcher): a ``torch.profiler.profile`` of the
 CPU, and of the card when there is one, written as a Chrome trace under
-``log_dir``.  :func:`attach_hlo_report` logs the collective traffic of a
-traced step (the reference reads it from XLA's compiled HLO; the port
-counts it with ``launch.hlo_stats.TraceStats``).
+``log_dir``, spans included.  :func:`attach_hlo_report` logs the
+collective traffic of a traced step (the reference reads it from XLA's
+compiled HLO; the port counts it with ``launch.hlo_stats.TraceStats``).
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ import os
 
 import torch
 
-from repro_torch.obs.registry import enabled, log_event
+from repro_torch.obs.registry import log_event
 
 __all__ = [
     "span",
@@ -38,31 +45,31 @@ __all__ = [
 ]
 
 
-@contextlib.contextmanager
+_NULL = contextlib.nullcontext()
+_profiler = torch.autograd.profiler  # its on-flag is read at each call
+
+
 def span(name: str):
-    """Group the operations inside under ``name`` when enabled."""
-    if not enabled():
-        yield
-        return
-    with torch.profiler.record_function(name):
-        yield
+    """Group the operations inside under ``name`` while a profiler
+    records."""
+    if not _profiler._is_profiler_enabled:
+        return _NULL
+    return torch.profiler.record_function(name)
 
 
 def host_span(name: str):
-    """A named region on the host timeline when enabled (the same
-    annotation as :func:`span`: torch's profiler puts both on the host
-    timeline, with the device work they launch beneath)."""
+    """A named region on the host timeline while a profiler records (the
+    same annotation as :func:`span`: torch's profiler puts both on the
+    host timeline, with the device work they launch beneath)."""
     return span(name)
 
 
-@contextlib.contextmanager
 def step_span(name: str, step: int):
-    """Per-step profiler marker ``<name>#<step>`` when enabled."""
-    if not enabled():
-        yield
-        return
-    with torch.profiler.record_function(f"{name}#{step}"):
-        yield
+    """Per-step profiler marker ``<name>#<step>`` while a profiler
+    records."""
+    if not _profiler._is_profiler_enabled:
+        return _NULL
+    return torch.profiler.record_function(f"{name}#{step}")
 
 
 _PROFILER: torch.profiler.profile | None = None

@@ -152,9 +152,11 @@ class DecodeEngine:
             due[slot] = st.samples_this_step
         dev = torch.from_numpy(host).to(self.device)
 
-        logits = self._decode(dev[0][:, None], dev[1].bool())
-        keys = request_keys(self.seed, dev[2], dev[3])
-        nxt = self._sample(keys, logits).cpu().numpy()  # blocks: step done
+        with obs.span("serve.decode"):
+            logits = self._decode(dev[0][:, None], dev[1].bool())
+        with obs.span("serve.sample"):
+            nxt = self._sample(request_keys(self.seed, dev[2], dev[3]), logits)
+        nxt = nxt.cpu().numpy()  # blocks: step done
 
         sampled: dict[int, int] = {}
         completed: list[int] = []

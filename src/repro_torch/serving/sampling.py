@@ -26,6 +26,10 @@ the device, so a token depends only on the seed, the request id, the
 token index and the logits -- never on the slot, the step, the batch or
 the other requests -- and the draw needs no host sync and no per-request
 ``torch.Generator``.  The ``log(p + 1e-20)`` guard is the reference's.
+
+Under a profiler each sampler's merge tournament sits in a
+``sample.topk`` span (once a row in the per-request forms) and the rest
+of its draw in a ``sample.draw`` span.
 """
 
 from __future__ import annotations
@@ -107,9 +111,11 @@ def sample_topk(keys, logits, k: int = 50, temperature: float = 1.0,
     set, one single-row tournament per request."""
     out = []
     for i in range(logits.shape[0]):
-        vals, idx = merge_topk(logits[i], k, fanout=fanout)
-        probs = torch.softmax(vals.float() / temperature, dim=-1)
-        out.append(idx[_gumbel_choice(keys[i:i + 1], probs[None])])
+        with obs.span("sample.topk"):
+            vals, idx = merge_topk(logits[i], k, fanout=fanout)
+        with obs.span("sample.draw"):
+            probs = torch.softmax(vals.float() / temperature, dim=-1)
+            out.append(idx[_gumbel_choice(keys[i:i + 1], probs[None])])
     return torch.cat(out)
 
 
@@ -118,12 +124,14 @@ def sample_topp(keys, logits, p: float = 0.9, k: int = 256,
     """Nucleus sampling over merge-sorted top-k candidates, per request."""
     out = []
     for i in range(logits.shape[0]):
-        vals, idx = merge_topk(logits[i], k, fanout=fanout)
-        probs = torch.softmax(vals.float() / temperature, dim=-1)
-        cum = torch.cumsum(probs, dim=-1)
-        keep = cum - probs < p  # first token always kept
-        probs = torch.where(keep, probs, 0.0)
-        out.append(idx[_gumbel_choice(keys[i:i + 1], probs[None])])
+        with obs.span("sample.topk"):
+            vals, idx = merge_topk(logits[i], k, fanout=fanout)
+        with obs.span("sample.draw"):
+            probs = torch.softmax(vals.float() / temperature, dim=-1)
+            cum = torch.cumsum(probs, dim=-1)
+            keep = cum - probs < p  # first token always kept
+            probs = torch.where(keep, probs, 0.0)
+            out.append(idx[_gumbel_choice(keys[i:i + 1], probs[None])])
     return torch.cat(out)
 
 
@@ -165,10 +173,12 @@ def sample_topk_batched(keys, logits, k: int = 50,
     """Batched top-k sampling with per-request ``keys`` (from
     :func:`request_keys`): the same token per row as :func:`sample_topk`
     given the same key."""
-    vals, idx = batched_topk(logits, k, fanout=fanout)
-    probs = torch.softmax(vals.float() / temperature, dim=-1)
-    choice = _gumbel_choice(keys, probs)
-    return torch.gather(idx, 1, choice[:, None])[:, 0]
+    with obs.span("sample.topk"):
+        vals, idx = batched_topk(logits, k, fanout=fanout)
+    with obs.span("sample.draw"):
+        probs = torch.softmax(vals.float() / temperature, dim=-1)
+        choice = _gumbel_choice(keys, probs)
+        return torch.gather(idx, 1, choice[:, None])[:, 0]
 
 
 def nucleus_counts(probs: torch.Tensor, p: float) -> torch.Tensor:
@@ -188,11 +198,13 @@ def sample_topp_batched(keys, logits, p: float = 0.9, k: int = 256,
     (``value_cut_counts``: one ``searchsorted`` per request), the same
     prefix as the reference's ``cum - probs < p`` since that run is
     non-decreasing."""
-    vals, idx = batched_topk(logits, k, fanout=fanout)
-    probs = torch.softmax(vals.float() / temperature, dim=-1)
-    n_keep = nucleus_counts(probs, p)
-    keep = torch.arange(k, dtype=torch.int32,
-                        device=probs.device)[None, :] < n_keep[:, None]
-    probs = torch.where(keep, probs, 0.0)
-    choice = _gumbel_choice(keys, probs)
-    return torch.gather(idx, 1, choice[:, None])[:, 0]
+    with obs.span("sample.topk"):
+        vals, idx = batched_topk(logits, k, fanout=fanout)
+    with obs.span("sample.draw"):
+        probs = torch.softmax(vals.float() / temperature, dim=-1)
+        n_keep = nucleus_counts(probs, p)
+        keep = torch.arange(k, dtype=torch.int32,
+                            device=probs.device)[None, :] < n_keep[:, None]
+        probs = torch.where(keep, probs, 0.0)
+        choice = _gumbel_choice(keys, probs)
+        return torch.gather(idx, 1, choice[:, None])[:, 0]

@@ -4,12 +4,14 @@ Mirrors ``tests/test_obs.py``'s registry and sink cases, then holds the
 port's records against the reference's for the same calls (every field
 but ``ts``, and the JSONL lines byte for byte once ``ts`` is taken out),
 counts the tensor operations a disabled record point or span dispatches
-(none), and checks that an enabled record point snapshots its tensors.
+(none), checks that an enabled record point snapshots its tensors, and
+that spans record under a profiler and only there.
 
 The reference's side runs in this file only: ``repro.obs.enable`` and
 ``disable`` clear JAX's compile caches.
 """
 
+import contextlib
 import json
 import re
 
@@ -260,6 +262,55 @@ def test_value_updated_in_place_is_recorded_as_it_was():
         obs.flush()
         assert [r["value"] for r in recs] == [0, 5]
         assert recs[0]["labels"]["slots"] == [0.0, 0.0, 0.0]
+
+
+# ---------------------------------------------------------------------------
+# spans: on only while a profiler records, whatever obs says
+# ---------------------------------------------------------------------------
+
+
+def _spans():
+    with obs.span("t.span"), obs.host_span("t.host"), \
+            obs.step_span("decode", 0):
+        with obs.span("serve.decode"):
+            torch.ones(2).sum()
+
+
+@pytest.mark.parametrize("on", [False, True], ids=["obs_off", "obs_on"])
+def test_spans_dispatch_nothing_without_a_profiler(on):
+    """With no profiler recording, every span is one shared null context
+    and dispatches nothing, whether obs is on or off."""
+    assert not torch.autograd.profiler._is_profiler_enabled
+    with obs.capture() if on else contextlib.nullcontext():
+        assert obs.enabled() == on
+        assert obs.span("a") is obs.host_span("b") is obs.step_span("c", 1)
+        with _CountOps() as mode:
+            with obs.span("t.span"), obs.host_span("t.host"), \
+                    obs.step_span("decode", 0):
+                pass
+        assert mode.ops == []
+
+
+@pytest.mark.parametrize("on", [False, True], ids=["obs_off", "obs_on"])
+def test_spans_are_annotations_under_a_profiler(on):
+    """Under ``torch.profiler.profile`` every span is a user annotation of
+    the trace, with its name, whether obs is on or off, and an operation
+    inside falls within it."""
+    with obs.capture() if on else contextlib.nullcontext():
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            assert torch.autograd.profiler._is_profiler_enabled
+            _spans()
+        assert not torch.autograd.profiler._is_profiler_enabled
+    events = prof.profiler.kineto_results.events()
+    spans = {e.name(): (e.start_ns(), e.end_ns()) for e in events
+             if e.is_user_annotation()}
+    assert set(spans) == {"t.span", "t.host", "decode#0", "serve.decode"}
+    ops = [(x.start_ns(), x.end_ns()) for x in events
+           if x.name() == "aten::sum"]
+    assert ops
+    for name, (lo, hi) in spans.items():  # nested: each holds the operation
+        assert all(lo <= s <= e <= hi for s, e in ops), name
 
 
 # ---------------------------------------------------------------------------
