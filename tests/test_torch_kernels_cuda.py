@@ -692,6 +692,32 @@ def test_topk_on_card_matches_cpu_and_sort(cuda_device, dtype):
     assert torch.equal(idx.long(), order)
 
 
+@pytest.mark.parametrize("b,vocab,steps", [(256, 50288, 2), (32, 129280, 8)])
+def test_batched_sampler_equals_per_row_on_card(cuda_device, b, vocab, steps):
+    """The lock-step top-k sampler at the benchmark's shapes (mamba2-2.7b's
+    256 rows of 50,288 logits, deepseek-v3's 32 rows of 129,280; k = 50,
+    fan-out 0): the batched form, on the grouped launch, draws the per-row
+    form's token for each of 512 and 256 keys.  Eight or twenty copies of
+    each logit on average, so ties cross the tournament's blocks of 128."""
+    from repro_torch.serving.sampling import (
+        request_keys,
+        sample_topk,
+        sample_topk_batched,
+    )
+
+    g = torch.Generator(device=cuda_device).manual_seed(vocab)
+    x = torch.randint(-3000, 3000, (b, vocab), generator=g,
+                      device=cuda_device).float() / 8
+    rows = torch.arange(b, device=cuda_device)
+    for i in range(steps):
+        keys = request_keys(2**31 + 5, rows, torch.full_like(rows, i))
+        before = km.merge_kway_tile_groups.launches
+        got = sample_topk_batched(keys, x, k=50, fanout=0)
+        assert km.merge_kway_tile_groups.launches > before
+        want = sample_topk(keys, x, k=50, fanout=0)
+        assert torch.equal(got, want)
+
+
 # --- the MoE layer's merges: dispatch sort and router top-k -------------------------
 
 

@@ -31,11 +31,13 @@ from repro.configs.registry import ARCHS as REF_ARCHS, smoke_config as ref_smoke
 from repro.launch import serve as ref_serve
 from repro.models.transformer import init_params as ref_init_params
 from repro.serving import DecodeEngine as RefEngine
+from repro_torch import obs
 from repro_torch.configs.registry import ARCHS, smoke_config
 from repro_torch.launch import serve
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.transformer import init_params
 from repro_torch.serving import DecodeEngine, KVPool, Request, Scheduler
+from repro_torch.serving.sampling import sample_topk
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 GAP_TOL = 2e-5  # relative to the largest logit: twice the logits' tolerance
@@ -239,6 +241,47 @@ def test_lockstep_decoder_checks():
     out = dec.generate(np.array([[1, 2, 3], [4, 5, 6]]), 5)
     assert out.shape == (2, 5) and int(dec.cache.length) == 8
     assert ((out >= 0) & (out < cfg.vocab)).all()
+
+
+class _PerRowDecoder(serve.LockstepDecoder):
+    """The lock-step decoder with the per-request top-k sampler: one
+    tournament and one draw a row, the oracle of the batched form."""
+
+    def _sample(self, keys, logits):
+        return sample_topk(keys, logits, k=self.top_k, fanout=self.cfg.fanout)
+
+
+@pytest.fixture(scope="module")
+def lockstep_models():
+    out = {}
+    for arch in ("mamba2-2.7b", "deepseek-v3-671b"):
+        cfg = smoke_config(ARCHS[arch])
+        out[arch] = cfg, init_params(cfg, torch.Generator().manual_seed(0),
+                                     device="cpu")
+    return out
+
+
+@pytest.mark.parametrize("batch,seed", [(1, 0), (4, 42), (8, 2**31 + 11)])
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "deepseek-v3-671b"])
+def test_lockstep_topk_streams_equal_per_row_sampler(lockstep_models, arch,
+                                                     batch, seed):
+    """The lock-step ``topk`` path draws the whole batch with one batched
+    tournament a step: its streams equal the per-row sampler's token for
+    token, and ``serve.topk_merge_rounds`` is recorded once a generated
+    step at the decoder's rows."""
+    cfg, params = lockstep_models[arch]
+    new = 5
+    prompts = np.random.default_rng(seed).integers(1, cfg.vocab, (batch, 3))
+    kw = dict(batch=batch, max_len=prompts.shape[1] + new, sampler="topk",
+              top_k=50, seed=seed)
+    with obs.capture() as recs:
+        got = serve.LockstepDecoder(cfg, params, **kw).generate(prompts, new)
+    want = _PerRowDecoder(cfg, params, **kw).generate(prompts, new)
+    assert got.shape == (batch, new)
+    np.testing.assert_array_equal(got, want)
+    rounds = [r for r in recs if r["metric"] == "serve.topk_merge_rounds"]
+    assert [r["step"] for r in rounds] == list(range(new))
+    assert all(r["labels"]["batch"] == batch for r in rounds)
 
 
 # --- the port's determinism contract ------------------------------------------------

@@ -1,7 +1,7 @@
 """The spans inside the port's decode step and sampler, on the CPU.
 
 One smoke-width lock-step batch of deepseek-v3 (MLA, dropless MoE, the
-per-row top-k sampler) and one of mamba2 run under a CPU profiler, and one
+batched top-k sampler) and one of mamba2 run under a CPU profiler, and one
 ``DecodeEngine`` run of qwen3 (the batched sampler); the annotations the
 profiler records must nest as ``repro_torch.obs`` lists them, each span
 the expected number of times, and the served tokens must be the same
@@ -76,9 +76,8 @@ def test_deepseek_lockstep_span_tree():
     assert _children(tree, "model.moe") == {
         "moe.route": layers, "moe.dispatch": layers, "moe.experts": layers,
         "moe.combine": 2 * layers}  # the routed combine, the shared experts
-    rows = NEW * len(PROMPTS)  # the per-row sampler: once a row a step
-    assert _children(tree, "serve.sample") == {"sample.topk": rows,
-                                               "sample.draw": rows}
+    assert _children(tree, "serve.sample") == {"sample.topk": NEW,
+                                               "sample.draw": NEW}
     for name in ("model.attn", "model.mlp", "moe.dispatch", "moe.experts",
                  "sample.draw"):
         assert not _children(tree, name), name
@@ -94,7 +93,7 @@ def test_mamba2_lockstep_span_tree():
     assert _children(tree, "model.ssm") == {
         "ssm.state_write": steps * cfg.n_layers}
     assert _children(tree, "serve.sample") == {
-        "sample.topk": NEW * len(PROMPTS), "sample.draw": NEW * len(PROMPTS)}
+        "sample.topk": NEW, "sample.draw": NEW}
 
 
 @pytest.mark.parametrize("sampler", ["topk", "topp"])
