@@ -3,7 +3,9 @@
 The port keeps its own copy of the reference's frozen dataclass, field for
 field, so that one architecture name means the same model in both
 packages.  Fields the port does not use yet (sharding layout, remat,
-training knobs) are kept so the two stay comparable."""
+training knobs) are kept so the two stay comparable.  Two fields are the
+port's own, ``norm`` and ``clip_qkv``; at their defaults (every registered
+architecture) the model is the reference's."""
 
 from __future__ import annotations
 
@@ -28,6 +30,11 @@ class ModelConfig:
     pos_emb: str = "rope"  # rope | sinusoidal
     rope_theta: float = 1e4
     tie_embeddings: bool = False
+    # the port's own: the blocks' and the final norm, rmsnorm | layernorm
+    # (scale only, no bias: DBRX), and the clamp of q, k and v to
+    # +-clip_qkv before rope (0 = none)
+    norm: str = "rmsnorm"
+    clip_qkv: float = 0.0
     # MoE
     moe: bool = False
     n_experts: int = 0

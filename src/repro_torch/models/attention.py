@@ -82,9 +82,12 @@ def gqa_specs(qkv_bias=False, qk_norm=False):
     return s
 
 
-def qkv_project(params, x, cos, sin, positions, qk_norm=False):
-    """x (b, s, d) -> q (b, s, h, hd), k and v (b, s, n_kv, hd): q and k
-    RMS-normalised per head (``qk_norm``), then rotated."""
+def qkv_project(params, x, cos, sin, positions, qk_norm=False,
+                clip_qkv=0.0):
+    """x (b, s, d) -> q (b, s, h, hd), k and v (b, s, n_kv, hd): with
+    their biases, clamped to ``+-clip_qkv`` when it is set (DBRX's clamp
+    of its fused QKV output), q and k RMS-normalised per head
+    (``qk_norm``), then rotated."""
     dt = x.dtype
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dt))
     k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(dt))
@@ -93,6 +96,8 @@ def qkv_project(params, x, cos, sin, positions, qk_norm=False):
         q = q + params["bq"].to(dt)
         k = k + params["bk"].to(dt)
         v = v + params["bv"].to(dt)
+    if clip_qkv:
+        q, k, v = (t.clamp(-clip_qkv, clip_qkv) for t in (q, k, v))
     if qk_norm:
         q = rmsnorm(params["q_norm"], q)
         k = rmsnorm(params["k_norm"], k)

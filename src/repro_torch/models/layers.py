@@ -38,6 +38,7 @@ __all__ = [
     "truncated_normal",
     "init_rmsnorm",
     "rmsnorm",
+    "layernorm",
     "init_embedding",
     "embed",
     "unembed",
@@ -199,6 +200,14 @@ def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
+    return (y * params["scale"]).to(x.dtype)
+
+
+def layernorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Layer normalisation over the last axis with a scale and no bias
+    (DBRX), in float32 inside; the same ``{"scale"}`` tree as
+    :func:`rmsnorm`."""
+    y = F.layer_norm(x.float(), x.shape[-1:], eps=eps)
     return (y * params["scale"]).to(x.dtype)
 
 

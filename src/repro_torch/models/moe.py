@@ -36,7 +36,9 @@ capacity slots and swaps the (group, expert) slot axes with
 
 Under a profiler :func:`moe_apply` records the spans ``moe.route``,
 ``moe.dispatch`` (the sort, the bounds and the group sizes' host read),
-``moe.experts`` and ``moe.combine`` (``repro_torch.obs``).
+``moe.experts`` and ``moe.combine`` (``repro_torch.obs``); with obs on,
+the dropless dispatch records the gauge ``moe.expert_load`` from the
+sizes it has read.
 """
 
 from __future__ import annotations
@@ -260,6 +262,11 @@ def _dropless_moe(params, xt, w, experts, n_experts, top_k):
         _, sorted_idx, group_sizes = moe_dispatch_dropless(experts, n_experts)
         sorted_idx = sorted_idx.long()
         segments = _segments(group_sizes, sorted_idx.shape[0])
+        if obs.enabled() and segments:
+            # the largest expert's rows over the mean, from the host sizes
+            obs.gauge("moe.expert_load",
+                      max(hi - lo for _, lo, hi in segments) * n_experts
+                      / sorted_idx.shape[0], experts=n_experts, top_k=top_k)
         xs = xt[sorted_idx // top_k]  # (T*k, d) rows in expert order
     with obs.span("moe.experts"):
         ws = [params[n].to(dt) for n in ("w_gate", "w_up", "w_down")]

@@ -12,7 +12,9 @@ per use as the reference does; ``cfg.remat`` checkpoints each layer
 The decode :class:`Cache`, ``init_cache`` for the ``gqa``, ``mla``,
 ``ssm`` and ``hybrid`` cache families, the continuous-batching step
 ``decode_step_ragged`` (``gqa`` caches) and the lock-step ``decode_step``
-(every cache family) serve.
+(every cache family) serve.  Every block norm and the final norm is
+``cfg.norm``'s (RMSNorm, or DBRX's bias-free LayerNorm), and a GQA layer
+clamps q, k and v to ``cfg.clip_qkv`` when it is set.
 
 Params are the reference's pytree as nested dicts of tensors, layers
 stacked on a leading axis (``dense_layers`` holds the leading dense layers
@@ -87,6 +89,20 @@ def _check_ported(cfg: ModelConfig) -> None:
         raise ValueError(
             f"{cfg.name}: the port dispatches with the co-rank merge sort "
             "only (use_merge_sort_dispatch=True)")
+    if cfg.norm not in ("rmsnorm", "layernorm"):
+        raise ValueError(f"{cfg.name}: unknown norm {cfg.norm!r} "
+                         "(expected 'rmsnorm' or 'layernorm')")
+    if cfg.clip_qkv and cfg.mla:
+        raise ValueError(f"{cfg.name}: clip_qkv clamps the GQA projections; "
+                         "MLA has none")
+
+
+def _norm(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
+    """The blocks' and the final norm: ``cfg.norm``'s, with its epsilon
+    (RMSNorm 1e-6, DBRX's bias-free LayerNorm 1e-5)."""
+    if cfg.norm == "layernorm":
+        return L.layernorm(params, x)
+    return L.rmsnorm(params, x)
 
 
 # --------------------------------------------------------------------------
@@ -284,7 +300,7 @@ def _embed_inputs(cfg, params, tokens, frontend_embeds, dtype):
 
 
 def _dense_attn_block(cfg, lp, x, cos, sin, positions):
-    h = L.rmsnorm(lp["ln1"], x)
+    h = _norm(cfg, lp["ln1"], x)
     if cfg.mla:
         dims = dict(qk_nope_head_dim=cfg.qk_nope_head_dim,
                     qk_rope_head_dim=cfg.qk_rope_head_dim)
@@ -293,7 +309,8 @@ def _dense_attn_block(cfg, lp, x, cos, sin, positions):
             kv_chunk=cfg.kv_chunk, causal_skip=cfg.causal_skip)
     else:
         q, k, v = attn_mod.qkv_project(lp["attn"], h, cos, sin, positions,
-                                       qk_norm=cfg.qk_norm)
+                                       qk_norm=cfg.qk_norm,
+                                       clip_qkv=cfg.clip_qkv)
         if cfg.flash_vjp:
             fa = attn_mod.make_flash_attention_vjp(
                 causal=True, q_chunk=min(cfg.q_chunk, q.shape[1]),
@@ -368,7 +385,8 @@ def hidden_states(cfg: ModelConfig, params, tokens: torch.Tensor,
         def mamba_body(xx, lp, idx):
             xx = L.constrain_batch_leading(xx)
             out, _ = ssm_mod.mamba2_forward(
-                lp["mamba"], meta, L.rmsnorm(lp["ln"], xx), chunk=cfg.ssm_chunk)
+                lp["mamba"], meta, _norm(cfg, lp["ln"], xx),
+                chunk=cfg.ssm_chunk)
             xx = xx + out
             if cfg.attn_every and (idx + 1) % cfg.attn_every == 0:
                 xx = _dense_attn_block(cfg, shared, xx, cos, sin, positions)
@@ -378,7 +396,7 @@ def hidden_states(cfg: ModelConfig, params, tokens: torch.Tensor,
         body = _remat(cfg, mamba_body)
         for idx, lp in enumerate(layer_trees(params["layers"])):
             x = body(x, lp, idx)
-        return L.rmsnorm(params["final_norm"], x)
+        return _norm(cfg, params["final_norm"], x)
 
     def block(xx, lp, moe_layer):
         xx = _dense_attn_block(cfg, lp, L.constrain_batch_leading(xx), cos,
@@ -389,7 +407,7 @@ def hidden_states(cfg: ModelConfig, params, tokens: torch.Tensor,
     body = _remat(cfg, block)
     for lp, moe_layer in _layer_list(cfg, params):
         x = body(x, lp, moe_layer)
-    return L.rmsnorm(params["final_norm"], x)
+    return _norm(cfg, params["final_norm"], x)
 
 
 def _unembed_table(cfg, params):
@@ -567,7 +585,7 @@ def _embed_and_tables(cfg, params, cache, tokens, pos):
 
 def _logits(cfg, params, x):
     with obs.span("model.head"):
-        h = L.rmsnorm(params["final_norm"], x)
+        h = _norm(cfg, params["final_norm"], x)
         table = params["embed" if cfg.tie_embeddings else "unembed"]["table"]
         logits = torch.einsum("bsd,vd->bsv", h, table.to(_dtype(cfg.dtype)))
         return logits[:, 0].float()
@@ -582,7 +600,7 @@ def _layer_list(cfg, params):
 
 def _ffn_block(cfg, lp, x, *, moe_layer):
     with obs.span("model.moe" if moe_layer else "model.mlp"):
-        h = L.rmsnorm(lp["ln2"], x)
+        h = _norm(cfg, lp["ln2"], x)
         if moe_layer:
             ff = moe_mod.moe_apply(
                 lp["mlp"], h, n_experts=cfg.n_experts, top_k=cfg.moe_top_k,
@@ -662,9 +680,10 @@ def decode_step_ragged(cfg: ModelConfig, params, cache: Cache,
     positions = lengths[:, None]  # (b, 1): per-slot rope positions
     for i, (lp, moe_layer) in enumerate(_layer_list(cfg, params)):
         with obs.span("model.attn"):
-            h = L.rmsnorm(lp["ln1"], x)
+            h = _norm(cfg, lp["ln1"], x)
             q, k, v = attn_mod.qkv_project(lp["attn"], h, cos, sin, positions,
-                                           qk_norm=cfg.qk_norm)
+                                           qk_norm=cfg.qk_norm,
+                                           clip_qkv=cfg.clip_qkv)
             # per-slot scatter: slot b's token lands at its own position
             if L.is_dtensor(kc):
                 _write_rows(kc[i], idx, k[:, 0].to(kc.dtype))
@@ -712,7 +731,7 @@ def _decode_mla(cfg, params, data, x, cos, sin, positions, pos):
     ckv, kr = data
     for i, (lp, moe_layer) in enumerate(_layer_list(cfg, params)):
         with obs.span("model.attn"):
-            h = L.rmsnorm(lp["ln1"], x)
+            h = _norm(cfg, lp["ln1"], x)
             q_nope, q_rope, c_kv, k_rope = mla_mod.mla_latents(
                 lp["attn"], h, cos, sin, positions, dims)
             if L.is_dtensor(ckv):
@@ -739,7 +758,7 @@ def _decode_ssm(cfg, params, data, x, cos, sin, positions, pos):
     conv_c, st_c = data[:2]
     for i, lp in enumerate(params["layers"]):
         with obs.span("model.ssm"):
-            h = L.rmsnorm(lp["ln"], x)
+            h = _norm(cfg, lp["ln"], x)
             out, (conv_n, st_n) = ssm_mod.mamba2_forward(
                 lp["mamba"], meta, h, state=(conv_c[i], st_c[i]))
             with obs.span("ssm.state_write"):
@@ -758,9 +777,10 @@ def _shared_attention(cfg, lp, kc, vc, x, cos, sin, positions, pos):
     shared position ``pos``, writing its k/v into ``kc``/``vc``."""
     at = pos.reshape(1).long()
     with obs.span("model.attn"):
-        h = L.rmsnorm(lp["ln1"], x)
+        h = _norm(cfg, lp["ln1"], x)
         q, k, v = attn_mod.qkv_project(lp["attn"], h, cos, sin, positions,
-                                       qk_norm=cfg.qk_norm)
+                                       qk_norm=cfg.qk_norm,
+                                       clip_qkv=cfg.clip_qkv)
         if L.is_dtensor(kc):
             _write_rows(kc, at.expand(x.shape[0]), k[:, 0].to(kc.dtype))
             _write_rows(vc, at.expand(x.shape[0]), v[:, 0].to(vc.dtype))

@@ -72,6 +72,13 @@ Metrics catalog -- the record points the port has:
                              lock-step loop drew this step (snapshotted on
                              the device); labels ``batch``.
 
+== MoE ==
+``moe.expert_load``          gauge, per dropless MoE layer: the largest
+                             expert's rows over the mean (``T k / E``),
+                             from the segment sizes the dispatch has
+                             already read to the host; labels ``experts``,
+                             ``top_k``.
+
 == Dispatch ==
 ``kernels.backend_selected`` event, once per (op, backend, source): which
                              backend ``repro_torch.backend`` chose and why.
@@ -107,6 +114,18 @@ on both serving paths (``LockstepDecoder``, ``DecodeEngine``):
                              ``moe.combine`` (weights, scatter, sum over
                              choices, shared experts).
 ``model.head``               final norm and unembedding.
+
+Around ``serve.decode`` and ``serve.sample`` in ``DecodeEngine.step``,
+its host work:
+
+``serve.admit``              admission of queued requests and their slot
+                             claims (``KVPool.alloc``).
+``serve.pack``               the packed ``(4, b)`` host array of the
+                             step's inputs and its copy to the device.
+``serve.readback``           the blocking copy of the sampled tokens to
+                             the host.
+``serve.retire``             banking each slot's token, retiring finished
+                             requests and freeing their slots.
 
 == Collective traffic of a traced step ==
 ``hlo.collectives``          event: the collective traffic counted on a

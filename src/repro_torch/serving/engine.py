@@ -20,7 +20,11 @@ batch at once, with no prefill entry point and no barrier on the others.
 The steps run eagerly.  A step copies its inputs to the device once (one
 packed ``(4, b)`` array: tokens, active flags, request ids, token
 indices) and its sampled tokens back once, as the reference blocks on
-them.
+them.  Under a profiler a step records, besides ``serve.decode`` and
+``serve.sample``, the host work around them: ``serve.admit`` (admission
+and slot claims), ``serve.pack`` (the packed array and its copy),
+``serve.readback`` (the blocking copy of the sampled tokens) and
+``serve.retire`` (banking tokens, freeing finished slots).
 
 Determinism contract: a request's token stream is a function of ``(engine
 seed, request id, prompt, sampler settings)`` alone -- the sampling key
@@ -134,8 +138,9 @@ class DecodeEngine:
         sched, pool = self.scheduler, self.pool
         t0 = time.perf_counter()
 
-        n_free = min(pool.free_slots, sched.queued)
-        placed = sched.admit([pool.alloc() for _ in range(n_free)])
+        with obs.span("serve.admit"):
+            n_free = min(pool.free_slots, sched.queued)
+            placed = sched.admit([pool.alloc() for _ in range(n_free)])
         if obs.enabled():
             obs.gauge("serve.active_slots", sched.active_slots,
                       capacity=pool.capacity)
@@ -145,34 +150,37 @@ class DecodeEngine:
                     "active": 0}
 
         # tokens, active flags, request ids, token indices: one copy
-        host = np.zeros((4, pool.capacity), np.int64)
-        due = np.zeros((pool.capacity,), bool)
-        for slot, st in occupied:
-            host[:, slot] = (st.next_feed, 1, st.request.rid, st.generated)
-            due[slot] = st.samples_this_step
-        dev = torch.from_numpy(host).to(self.device)
+        with obs.span("serve.pack"):
+            host = np.zeros((4, pool.capacity), np.int64)
+            due = np.zeros((pool.capacity,), bool)
+            for slot, st in occupied:
+                host[:, slot] = (st.next_feed, 1, st.request.rid, st.generated)
+                due[slot] = st.samples_this_step
+            dev = torch.from_numpy(host).to(self.device)
 
         with obs.span("serve.decode"):
             logits = self._decode(dev[0][:, None], dev[1].bool())
         with obs.span("serve.sample"):
             nxt = self._sample(request_keys(self.seed, dev[2], dev[3]), logits)
-        nxt = nxt.cpu().numpy()  # blocks: step done
+        with obs.span("serve.readback"):
+            nxt = nxt.cpu().numpy()  # blocks: step done
 
         sampled: dict[int, int] = {}
         completed: list[int] = []
-        for slot, st in occupied:
-            if st.fed < st.request.prompt.size:
-                st.fed += 1
-            if due[slot]:
-                tok = int(nxt[slot])
-                st.tokens.append(tok)
-                st.generated += 1
-                sampled[st.request.rid] = tok
-            if st.done:
-                req = sched.complete(slot)
-                pool.free(slot)
-                self.results[req.rid] = list(st.tokens)
-                completed.append(req.rid)
+        with obs.span("serve.retire"):
+            for slot, st in occupied:
+                if st.fed < st.request.prompt.size:
+                    st.fed += 1
+                if due[slot]:
+                    tok = int(nxt[slot])
+                    st.tokens.append(tok)
+                    st.generated += 1
+                    sampled[st.request.rid] = tok
+                if st.done:
+                    req = sched.complete(slot)
+                    pool.free(slot)
+                    self.results[req.rid] = list(st.tokens)
+                    completed.append(req.rid)
 
         self.steps += 1
         if obs.enabled():

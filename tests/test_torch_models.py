@@ -63,13 +63,24 @@ def _cfgs(name, dtype="float32"):
 # --- configs and weights ----------------------------------------------------------
 
 
+# The port's own config fields, at the defaults that keep an arch the
+# reference's model (DBRX as published sets both: portbench's family).
+PORT_ONLY = {"norm": "rmsnorm", "clip_qkv": 0.0}
+
+
 def test_configs_equal_the_reference():
+    """Every reference field is equal; the port's own fields are exactly
+    ``PORT_ONLY``, at its defaults, in every registry entry and every
+    smoke config."""
     assert sorted(ARCHS) == sorted(REF_ARCHS)
     for name in ARCHS:
-        assert dataclasses.asdict(ARCHS[name]) == dataclasses.asdict(
-            REF_ARCHS[name])
-        assert dataclasses.asdict(smoke_config(ARCHS[name])) == \
-            dataclasses.asdict(ref_smoke(REF_ARCHS[name]))
+        for got, want in ((ARCHS[name], REF_ARCHS[name]),
+                          (smoke_config(ARCHS[name]),
+                           ref_smoke(REF_ARCHS[name]))):
+            fields = dataclasses.asdict(got)
+            own = {k: fields.pop(k) for k in PORT_ONLY}
+            assert fields == dataclasses.asdict(want)
+            assert own == PORT_ONLY
     assert ARCHS["qwen3-0.6b"].param_count() == REF_ARCHS["qwen3-0.6b"].param_count()
 
 
@@ -211,6 +222,52 @@ def test_rmsnorm_matches_reference():
     _close(got, want)
 
 
+def test_layernorm_is_bias_free_layer_norm():
+    """``layernorm``: ``F.layer_norm`` with the scale and no bias, eps
+    1e-5, in float32 inside and cast back; not ``rmsnorm`` where the mean
+    is not 0."""
+    x = _rng().standard_normal((2, 3, 64)).astype(np.float32) * 3 + 1.5
+    scale = _rng(1).standard_normal(64).astype(np.float32)
+    xt, st = torch.from_numpy(x), torch.from_numpy(scale)
+    want = torch.nn.functional.layer_norm(xt, (64,), weight=st, bias=None,
+                                          eps=1e-5)
+    got = layers.layernorm({"scale": st}, xt)
+    _close(got, want.numpy())
+    assert not torch.allclose(got, layers.rmsnorm({"scale": st}, xt),
+                              atol=0.1)
+    xb = xt.to(torch.bfloat16)
+    got_bf16 = layers.layernorm({"scale": st}, xb)
+    assert got_bf16.dtype == torch.bfloat16
+    assert torch.equal(got_bf16, torch.nn.functional.layer_norm(
+        xb.float(), (64,), weight=st, eps=1e-5).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("clip", [0.5, 1e3], ids=["binding", "not_binding"])
+def test_qkv_project_clamps_before_rope(clip):
+    """``clip_qkv`` clamps q, k and v to ``+-clip`` after the biases and
+    before rope; a clamp wider than every value changes nothing."""
+    p, _ = ref_attn.init_gqa(jax.random.key(3), 64, 4, 2, 16, qkv_bias=True)
+    p = {**p, **{n: jnp.full_like(p[n], 0.25) for n in ("bq", "bk", "bv")}}
+    params = params_from_numpy(_np(p), "cpu")
+    x = torch.from_numpy(_rng().standard_normal((3, 1, 64)).astype(np.float32))
+    cos, sin = layers.rope_frequencies(16, 32, 5e5, device="cpu")
+    pos = torch.tensor([[0], [5], [31]])
+    plain = attention.qkv_project(params, x, None, None, pos)
+    clamped = attention.qkv_project(params, x, None, None, pos, clip_qkv=clip)
+    roped = attention.qkv_project(params, x, cos, sin, pos, clip_qkv=clip)
+    binds = max(float(t.abs().max()) for t in plain) > clip
+    assert binds == (clip < 1)
+    for t, c in zip(plain, clamped):
+        assert torch.equal(c, t.clamp(-clip, clip))
+        assert float(c.abs().max()) <= clip
+    assert torch.equal(roped[0], layers.apply_rope(clamped[0], cos, sin, pos))
+    assert torch.equal(roped[1], layers.apply_rope(clamped[1], cos, sin, pos))
+    assert torch.equal(roped[2], clamped[2])
+    if not binds:
+        unclamped = attention.qkv_project(params, x, cos, sin, pos)
+        assert all(torch.equal(a, b) for a, b in zip(roped, unclamped))
+
+
 @pytest.mark.parametrize("theta", [1e4, 1e6])
 def test_rope_matches_reference(theta):
     rcos, rsin = ref_layers.rope_frequencies(16, 40, theta)
@@ -337,6 +394,45 @@ def test_moe_decode_step_ragged_matches_reference_bf16(arch):
     out, _, _ = _ragged_both(arch, "bfloat16")
     for got, want in out:
         _close(got, want, BF16_TOL)
+
+
+def test_decode_step_ragged_layernorm_clip_matches_forward():
+    """Smoke DBRX as published (bias-free LayerNorm, a ``clip_qkv`` that
+    binds at this width) at float32: each slot's logits from the ragged
+    step, slots joining at different steps (a held-back length while
+    inactive, as the engine holds it), equal the full forward's over that
+    slot's own tokens so far; the norm and the clamp both change them."""
+    cfg = dataclasses.replace(smoke_config(ARCHS["dbrx-132b"]),
+                              dtype="float32", norm="layernorm",
+                              clip_qkv=0.5)
+    raw = tf.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    params = tf.compute_params(cfg, raw)
+    b, steps = 3, 6
+    start = np.array([0, 2, 3])  # the step at which each slot joins
+    tokens = torch.from_numpy(_rng(7).integers(1, cfg.vocab, (b, steps)))
+    cache = tf.init_cache(cfg, b, steps + 1, dtype=torch.float32,
+                          device="cpu")
+    lengths = torch.zeros(b, dtype=torch.int32)
+    fed = [[] for _ in range(b)]
+    for t in range(steps):
+        active = torch.from_numpy(t >= start)
+        tok = torch.stack([tokens[r, len(fed[r])] for r in range(b)])
+        logits, cache = tf.decode_step_ragged(cfg, params, cache,
+                                              tok[:, None], lengths)
+        for r in range(b):
+            if not active[r]:
+                continue
+            fed[r].append(int(tok[r]))
+            seq = torch.tensor([fed[r]])
+            want = tf.prefill_logits(cfg, raw, seq)
+            _close(logits[r], want[0].numpy())
+            for other in (dict(norm="rmsnorm"), dict(clip_qkv=0.0)):
+                alt = tf.prefill_logits(dataclasses.replace(cfg, **other),
+                                        raw, seq)
+                if len(fed[r]) > 1:
+                    assert not torch.allclose(alt, want, atol=1e-3), other
+        lengths = torch.where(active, lengths + 1, lengths)
+    assert [len(f) for f in fed] == (steps - start).tolist()
 
 
 def test_decode_step_ragged_rejects_other_caches():

@@ -399,3 +399,75 @@ def test_attach_hlo_report_is_the_reference_s_record():
         ref_obs.flush()
     assert [(r["metric"], sorted(r["labels"])) for r in ours] == \
         [(r["metric"], sorted(r["labels"])) for r in theirs]
+
+
+# ---------------------------------------------------------------------------
+# the MoE load gauge
+# ---------------------------------------------------------------------------
+
+
+def _smoke_moe(seed=0):
+    from repro_torch.models import moe
+
+    p = moe.init_moe(torch.Generator().manual_seed(seed), 64, 32, 4,
+                     device="cpu")
+    x = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (2, 8, 64)).astype(np.float32))
+    return moe, p, x
+
+
+def _apply(moe, p, x):
+    return moe.moe_apply(p, x, n_experts=4, top_k=2, capacity_factor=1.25,
+                         dispatch="dropless")
+
+
+def test_expert_load_gauge_once_per_moe_layer():
+    """Under ``obs.capture`` every dropless MoE layer records
+    ``moe.expert_load`` once: the largest expert's rows over the mean,
+    labelled with the expert count and top-k; a decode step of smoke DBRX
+    records it once per layer."""
+    from repro_torch.configs.registry import ARCHS, smoke_config
+    from repro_torch.models import transformer as tf
+
+    moe, p, x = _smoke_moe()
+    _, experts = moe.route_topk(x.reshape(-1, 64) @ p["router"], 2)
+    rows = torch.bincount(experts.reshape(-1).long(), minlength=4)
+    with obs.capture() as recs:
+        _apply(moe, p, x)
+        obs.flush()
+    load = [r for r in recs if r["metric"] == "moe.expert_load"]
+    assert len(load) == 1 and load[0]["kind"] == "gauge"
+    assert load[0]["labels"] == {"experts": 4, "top_k": 2}
+    assert load[0]["value"] == pytest.approx(float(rows.max()) / (16 * 2 / 4))
+
+    cfg = smoke_config(ARCHS["dbrx-132b"])
+    params = tf.compute_params(cfg, tf.init_params(
+        cfg, torch.Generator().manual_seed(0), device="cpu"))
+    cache = tf.init_cache(cfg, 3, 8, device="cpu")
+    lengths = torch.zeros(3, dtype=torch.int32)
+    with obs.capture() as recs:
+        for _ in range(2):
+            _, cache = tf.decode_step_ragged(
+                cfg, params, cache, torch.tensor([[1], [2], [3]]), lengths)
+            lengths = cache.length
+        obs.flush()
+    load = [r for r in recs if r["metric"] == "moe.expert_load"]
+    assert len(load) == 2 * cfg.n_layers
+    assert all(1.0 <= r["value"] <= cfg.n_experts / cfg.moe_top_k
+               for r in load)
+
+
+def test_expert_load_gauge_dispatches_no_device_op():
+    """The gauge is computed from the sizes the dispatch has already read
+    to the host: with obs off the layer dispatches exactly what it
+    dispatches with obs on, and records nothing."""
+    moe, p, x = _smoke_moe(1)
+    with _CountOps() as off:
+        want = _apply(moe, p, x)
+    with obs.capture() as recs:
+        with _CountOps() as on:
+            got = _apply(moe, p, x)
+        obs.flush()
+    assert torch.equal(got, want)
+    assert off.ops == on.ops and off.ops
+    assert [r["metric"] for r in recs].count("moe.expert_load") == 1

@@ -1,11 +1,11 @@
 """The spans inside the port's decode step and sampler, on the CPU.
 
 One smoke-width lock-step batch of deepseek-v3 (MLA, dropless MoE, the
-batched top-k sampler) and one of mamba2 run under a CPU profiler, and one
-``DecodeEngine`` run of qwen3 (the batched sampler); the annotations the
-profiler records must nest as ``repro_torch.obs`` lists them, each span
-the expected number of times, and the served tokens must be the same
-with the profiler on and off.
+batched top-k sampler) and one of mamba2 run under a CPU profiler, and
+``DecodeEngine`` runs of qwen3 (the batched sampler) and of dbrx (the
+engine's host work); the annotations the profiler records must nest as
+``repro_torch.obs`` lists them, each span the expected number of times,
+and the served tokens must be the same with the profiler on and off.
 """
 
 from collections import Counter
@@ -118,3 +118,36 @@ def test_engine_span_tree(sampler):
         "model.mlp": steps * cfg.n_layers, "model.head": steps}
     assert _children(tree, "serve.sample") == {"sample.topk": steps,
                                                "sample.draw": steps}
+
+
+def test_engine_host_spans():
+    """Each engine step records its host work as four spans beside
+    ``serve.decode`` and ``serve.sample``, in step order: admission, the
+    packed inputs, (decode, sample), the readback, the retire loop; none
+    of the four holds another span."""
+    cfg = smoke_config(ARCHS["dbrx-132b"])
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+
+    def run():
+        eng = DecodeEngine(cfg, params, max_len=16, max_batch=2,
+                           queue_depth=4, top_k=8, seed=5)
+        for rid, prompt in enumerate(PROMPTS):
+            eng.submit(Request(rid, prompt.astype(np.int32), 3))
+        return eng.run(), eng.steps
+
+    (off, steps), (on, steps_on), tree = _profiled(run)
+    assert on == off and steps_on == steps
+    host = ("serve.admit", "serve.pack", "serve.readback", "serve.retire")
+    top = _children(tree, None)
+    assert {name: top[name] for name in host} == dict.fromkeys(host, steps)
+    assert top["serve.decode"] == top["serve.sample"] == steps
+    for name in host:
+        assert not _children(tree, name), name
+
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        run()
+    order = [e.name for e in sorted(prof.events(), key=lambda e: e.time_range.start)
+             if e.is_user_annotation and e.cpu_parent is None]
+    assert order == ["serve.admit", "serve.pack", "serve.decode",
+                     "serve.sample", "serve.readback", "serve.retire"] * steps
