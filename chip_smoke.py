@@ -74,9 +74,13 @@ full data size through the entry points a user calls:
                    depths, float32 storage, random weights: the lock-step
                    loop (batch 8, 32-token prompt, 32 new tokens) with
                    ``topk`` on both merge backends (equal streams) and
-                   ``greedy``, a profile of five steady steps, every
-                   grouped launch of one more held against its plain
-                   version, the step's byte bound (bf16 weights read once,
+                   ``greedy``, the SSD kernel's launches in the ``topk``
+                   run (one a layer a decode), a profile of five steady
+                   steps, every grouped launch and every SSD launch of one
+                   more held against its plain version (the SSD state bit
+                   for bit, ``y`` within float32 summation or one bf16
+                   step), the SSD kernel at the cells' 256 rows held and
+                   timed the same way, the step's byte bound (bf16 weights read once,
                    the conv and SSM states read and written) beside its
                    time, eight bf16 decode steps against eight float32
                    ones (relative L2 error of the logits under 0.1, every
@@ -234,6 +238,11 @@ MERGE_TPU = "src/repro/kernels/merge.py:57"
 KWAY_TPU = "src/repro/kernels/merge.py:235"
 KERNELS = ("merge_tile", "merge_kway_tile", "merge_kway_tile_groups",
            "merge_kway_groups_wide")
+# The SSD decode step's kernel (kernels/ssd.py), counted and reported apart
+# from the merge kernels above: only the ssm phase launches it.
+SSD_SRC = "src/repro_torch/kernels/csrc/ssd_step.cu"
+SSD_TPU = ("none: the reference runs the step as ssd_chunked at s = chunk "
+           "= 1 in XLA ops (src/repro/models/ssm.py)")
 GROUPED = ("merge_kway_tile_groups", "merge_kway_groups_wide")
 # Phase moe: each model at its published widths, depth cut to fit one 80 GB
 # card beside the phase's other tensors (PERF.md, section 4).
@@ -416,7 +425,7 @@ class Smoke:
         from repro_torch.core.kway import co_rank_kway_batch, merge_kway_ranked
         from repro_torch.core.mergesort import sort_key_val, sort_plan
         from repro_torch.external.api import external_argsort, external_sort
-        from repro_torch.kernels import _build, merge as km, ops
+        from repro_torch.kernels import _build, merge as km, ops, ssd as kssd
 
         self.torch = torch
         self.dev = torch.device("cuda", 0)
@@ -430,8 +439,9 @@ class Smoke:
         self.external_sort = external_sort
         self.sort_key_val = sort_key_val
         self.sort_plan = sort_plan
-        self.cases = {name: [] for name in KERNELS}
-        self.launches = {name: 0 for name in KERNELS}
+        self.kssd = kssd
+        self.cases = {name: [] for name in (*KERNELS, "ssd_step")}
+        self.launches = {name: 0 for name in (*KERNELS, "ssd_step")}
         self.failed = []
         self.pr11_ms = recorded_ms("PR 11 ms")
         self.parent_entry_ms = recorded_ms("PR 20 entry ms")
@@ -540,6 +550,14 @@ class Smoke:
     def reset(self) -> None:
         for name in KERNELS:
             getattr(self.km, name).launches = 0
+        self.kssd.ssd_step_update.launches = 0
+
+    def read_ssd_launches(self) -> int:
+        """The SSD kernel's launches since :meth:`reset`."""
+        self.torch.cuda.synchronize()
+        n = self.kssd.ssd_step_update.launches
+        self.launches["ssd_step"] += n
+        return n
 
     def read_launches(self) -> dict:
         self.torch.cuda.synchronize()
@@ -1440,6 +1458,8 @@ class Smoke:
         self.reset()
         got, steps, secs, times = run("topk", "cuda")
         launched = self.read_launches()["merge_kway_tile_groups"]
+        ssm_layers = cfg.n_layers if cache_kind(cfg) in ("ssm", "hybrid") else 0
+        ssd_launched = self.read_ssd_launches()
         plain, *_ = run("topk", "torch")
         self.reset()
         greedy, g_steps, g_secs, g_times = run("greedy", "cuda")
@@ -1449,14 +1469,17 @@ class Smoke:
                                          ("greedy", greedy, g_steps, g_secs, g_times)):
             log_steps(f"{phase} {cfg.name} lock-step {label}", res, st, sec, tm_)
         log(f"  {phase} {cfg.name} lock-step: merge_kway_tile_groups launches "
-            f"{launched} (topk), {g_launched} (greedy); {len(differ)} of {batch} "
+            f"{launched} (topk), {g_launched} (greedy); ssd_step launches "
+            f"{ssd_launched} in the topk run's {steps} decodes ({ssm_layers} "
+            f"a decode expected); {len(differ)} of {batch} "
             f"token streams differ between the cuda and torch merge backends")
         bad_tok = [b for res in (got, greedy) for b, t in res.items()
                    if len(t) != n_new or not all(0 <= v < cfg.vocab for v in t)]
-        if not launched or (greedy_launches and not g_launched) or differ or bad_tok:
+        if not launched or (greedy_launches and not g_launched) or differ or bad_tok \
+                or ssd_launched != ssm_layers * steps:
             raise AssertionError(f"lock-step {cfg.name}: launches {launched}/"
-                                 f"{g_launched}, streams differ {differ}, bad "
-                                 f"rows {bad_tok}")
+                                 f"{g_launched}, ssd_step {ssd_launched}, streams "
+                                 f"differ {differ}, bad rows {bad_tok}")
 
         # Five steady steps (sample, then decode) after the prompt, then one
         # more with every grouped launch held against its plain version.
@@ -1476,8 +1499,141 @@ class Smoke:
 
             self.log_profile(f"lock-step batch {batch}",
                              lambda: [step() for _ in range(5)])
-        self.record_grouped(step, lambda g, kk, w: f"{cfg.name} step ({g},{kk},{w})")
+        with self.checked_ssd() as ssd_calls:
+            self.record_grouped(step, lambda g, kk, w: f"{cfg.name} step ({g},{kk},{w})")
+        if ssm_layers:
+            self.record_ssd(f"{cfg.name} step", ssd_calls)
+        if len(ssd_calls) != ssm_layers:
+            raise AssertionError(f"lock-step {cfg.name}: a step made "
+                                 f"{len(ssd_calls)} ssd_step calls, {ssm_layers} "
+                                 f"expected")
         return times
+
+    # -- the SSD decode step's kernel ---------------------------------------------
+
+    @contextlib.contextmanager
+    def checked_ssd(self):
+        """While open, every launch of the SSD kernel on the decode path
+        (``models.ssm.ssd_step_update``) is held against ``ssd_step`` plus
+        ``copy_`` on the same inputs as it happens (:meth:`check_ssd`); the
+        list it yields gathers ``(mismatches, y outside, max |y error|,
+        inputs)`` a call, the inputs of the first call kept for timing."""
+        from repro_torch.models import ssm
+
+        real, calls = ssm.ssd_step_update, []
+
+        def checked(*args):
+            state = args[-1]
+            keep = None if calls else tuple(t.clone() for t in args)
+            y, result = self.check_ssd(real, args[:-1], state)
+            calls.append((*result, keep))
+            return y
+
+        ssm.ssd_step_update = checked
+        try:
+            yield calls
+        finally:
+            ssm.ssd_step_update = real
+
+    def check_ssd(self, kernel, args, state):
+        """``kernel(*args, state)`` against ``ssd_step`` on a copy of the
+        state taken before: ``(y, (state mismatches, y outside its bound,
+        max |y error|))``.  The state must match bit for bit; ``y`` sums in
+        another order than the plain einsum, so with float32 inputs it
+        must lie within 1e-5 of the sum of its terms' magnitudes, and with
+        bf16 inputs the value before the D skip must be the plain one or a
+        bf16 step beside it, the skip then added as the plain path adds it
+        (``tests/test_torch_kernels_cuda.py`` holds the same bounds)."""
+        from repro_torch.models import ssm
+
+        torch = self.torch
+        before = state.clone()
+        y = kernel(*args, state)
+        want_y, want_h = ssm.ssd_step(*args, before)
+        del before
+        mismatches = self.mismatch(state, want_h)[0]
+        x, c, d_skip = args[0], args[3], args[5]
+        h = x.shape[1]
+        c_heads = c.float().repeat_interleave(h // c.shape[1], dim=1)
+        if x.dtype == torch.float32:
+            terms = torch.einsum("bhpn,bhn->bhp", want_h.abs(), c_heads.abs())
+            outside = int(((y - want_y).abs() > 1e-5 * terms).sum())
+        else:
+            pre = torch.einsum("bhpn,bhn->bhp", want_h, c_heads).to(x.dtype)
+            skip = (d_skip[:, None] * x.float()).to(x.dtype)
+            ok = torch.zeros_like(y, dtype=torch.bool)
+            for y_pre in (pre, _bf16_step(torch, pre, True),
+                          _bf16_step(torch, pre, False)):
+                ok |= (y_pre + skip) == y
+            outside = int((~ok).sum())
+        err = float((y.float() - want_y.float()).abs().max()) if y.numel() else 0.0
+        return y, (mismatches, outside, err)
+
+    def record_ssd(self, case: str, calls) -> None:
+        """One ``ssd_step`` record from the checked calls of
+        :meth:`checked_ssd` or :meth:`ssd_cell_case`: their state
+        mismatches and ``y`` outside its bound (both must be 0), the device
+        time of one call on the first call's inputs (profiler) beside the
+        plain ``ssd_step`` plus ``copy_`` and a device copy of the state
+        (events), and the bound: the state read and written once over
+        3.35 TB/s."""
+        from repro_torch.models import ssm
+
+        torch = self.torch
+        args = calls[0][3]
+        *inputs, state = args
+        kernel = self.kssd.ssd_step_update
+        other = torch.empty_like(state)
+        bt, h, p = inputs[0].shape
+        n = state.shape[-1]
+        outside = sum(c[1] for c in calls)
+        label = (f"{case} ({bt},{h},{p},{n}) g{inputs[2].shape[1]} "
+                 f"{str(inputs[0].dtype)[6:]}")
+        call_ms = self.timed_ms(lambda: kernel(*inputs, state), 20)
+        device_ms = self.kernel_device_ms(lambda: kernel(*inputs, state))
+        self.record(
+            "ssd_step", label,
+            mismatches=sum(c[0] for c in calls),
+            max_abs_err=max(c[2] for c in calls),
+            ms=call_ms if device_ms is None else device_ms,
+            plain_ms=self.timed_ms(
+                lambda: state.copy_(ssm.ssd_step(*inputs, state)[1]), 10),
+            library_ms=self.timed_ms(lambda: other.copy_(state), 10),
+            nbytes=2 * state.numel() * state.element_size(),
+            ops=5 * state.numel(),  # two products, the add, C's product and sum
+            call_ms=call_ms, device_ms=device_ms, checked=len(calls),
+            y_outside=outside,
+        )
+        if outside:
+            raise AssertionError(f"ssd_step {label}: {outside} values of y "
+                                 f"outside their bound")
+
+    def ssd_cell_case(self, cfg, rows: int = 256) -> None:
+        """The SSD kernel at the benchmark cells' batch: one layer of
+        ``cfg``'s widths at ``rows`` rows, inputs shaped as the decode step
+        makes them (x, B and C strided slices of one bf16 conv output row),
+        held and timed as :meth:`record_ssd` says."""
+        from repro_torch.models.transformer import mamba_meta
+
+        torch, g = self.torch, self.gen
+        meta = mamba_meta(cfg)
+        h, p = meta["nheads"], meta["headdim"]
+        grp, n = meta["ngroups"], meta["d_state"]
+        d_inner = h * p
+        conv = torch.randn((rows, 1, d_inner + 2 * grp * n), generator=g,
+                           device=self.dev).to(getattr(torch, cfg.dtype))
+        args = (conv[..., :d_inner].reshape(rows, h, p),
+                torch.nn.functional.softplus(torch.randn(
+                    (rows, 1, h), generator=g, device=self.dev) - 2.0)[:, 0],
+                conv[..., d_inner:d_inner + grp * n].reshape(rows, grp, n),
+                conv[..., d_inner + grp * n:].reshape(rows, grp, n),
+                torch.log(torch.linspace(1.0, 16.0, h, device=self.dev)),
+                torch.randn((h,), generator=g, device=self.dev))
+        state = torch.randn((rows, h, p, n), generator=g, device=self.dev)
+        keep = tuple(t.clone() for t in (*args, state))
+        _, result = self.check_ssd(self.kssd.ssd_step_update, args, state)
+        self.launches["ssd_step"] += 1
+        self.record_ssd(f"{cfg.name} cell", [(*result, keep)])
 
     # -- phase 8: the SSM and hybrid families -------------------------------------
 
@@ -1492,8 +1648,10 @@ class Smoke:
 
     def ssm_model(self, name: str) -> None:
         """One model of the SSM family at its published widths and depth,
-        float32 storage as published, random weights: the launcher's
-        lock-step loop, the step's byte bound beside its time, a bf16
+        float32 storage as published, random weights: the SSD kernel at
+        the cells' 256 rows, the launcher's lock-step loop (the SSD
+        kernel's launches counted, one step's held), the step's byte bound
+        beside its time, a bf16
         decode step's logits against a float32 one, and (zamba2) the
         launches a step with obs on and off."""
         import dataclasses
@@ -1513,6 +1671,7 @@ class Smoke:
             f"{cfg.n_layers} layers, d {cfg.d_model}, {tm.cache_kind(cfg)} cache, "
             f"{cfg.param_dtype} storage, {torch.cuda.memory_allocated() / 1e9:.1f} GB "
             f"allocated, drawn in {time.perf_counter() - t0:.1f} s)")
+        self.ssd_cell_case(cfg)
         times = self.serve_lockstep(cfg, params, "ssm serve", greedy_launches=False)
 
         # Byte bound of a steady step at batch max_batch: the compute copy of
@@ -2462,6 +2621,7 @@ class Smoke:
             ("merge_kway_tile", KWAY_SRC, KWAY_TPU),
             ("merge_kway_tile_groups", KWAY_SRC, KWAY_TPU),
             ("merge_kway_groups_wide", KWAY_SRC, KWAY_TPU),
+            ("ssd_step", SSD_SRC, SSD_TPU),
         ):
             cases = self.cases[name]
             head = cases[0] if cases else {}
@@ -2500,6 +2660,19 @@ def _bit_mismatches(torch, got, want) -> int:
     bits = {8: torch.int64, 4: torch.int32, 2: torch.int16, 1: torch.int8}
     view = bits[got.element_size()]
     return int((got.view(view) != want.view(view)).sum())
+
+
+def _bf16_step(torch, v, up: bool):
+    """The bfloat16 values one step above (``up``) or below ``v``: bf16 is
+    sign and magnitude, so a step is one unit of the magnitude bits."""
+    u = v.view(torch.int16).int() & 0xFFFF
+    mag, neg = u & 0x7FFF, (u & 0x8000) != 0
+    away = up != neg  # a step up from a positive value grows its magnitude
+    mag = torch.where(away, mag + 1, mag - 1)
+    neg = torch.where(mag < 0, ~neg, neg)  # a step through zero
+    bits = torch.where(neg, 0x8000, 0) | mag.abs()
+    return torch.where(bits >= 0x8000, bits - 0x10000, bits).short().view(
+        torch.bfloat16)
 
 
 class _CheckedKernels:

@@ -25,7 +25,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "build", "load", "lib_path"]
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("merge_tile", "merge_kway_tile")
+SOURCES = ("merge_tile", "merge_kway_tile", "ssd_step")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

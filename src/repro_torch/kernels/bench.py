@@ -34,6 +34,14 @@ payload and int64 keys with an int64 payload; their ``sort_ms`` is
 ``torch.sort(stable=True)`` of the same real keys.  A case whose groups
 exceed the grouped launch's tile in the checkout under test runs through
 ``merge_runs_ranked`` (the checkout's own route for it).
+
+``--ssd`` times only the one-token SSD recurrence of one mamba2-2.7b layer
+at 256 rows, (256, 80, 64, 128), bf16 x/B/C and a float32 state of 671 MB:
+the checkout's decode-step update of the cached state
+(``models.ssm.ssd_step_``, one kernel, where the checkout has it; else
+``ssd_step`` and a ``copy_`` into the cache) beside ``plain_ms``, the
+plain ``ssd_step`` plus ``copy_``; its bound is the state read and written
+once, and ``copy_ms`` a device copy of the state.
 """
 
 from __future__ import annotations
@@ -89,6 +97,8 @@ def main(argv=None) -> int:
     parser.add_argument("--label", default="")
     parser.add_argument("--entries", action="store_true",
                         help="time only the three merge entries")
+    parser.add_argument("--ssd", action="store_true",
+                        help="time only the SSD decode step of one layer")
     args = parser.parse_args(argv)
     sys.path.insert(0, args.src)
     import torch
@@ -105,7 +115,7 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(20131303)
     rows = []
 
-    def report(case, fn, nbytes, sort_fn):
+    def report(case, fn, nbytes, sort_fn=None, plain_fn=None):
         d_ms, launches, kernels = _device(torch, fn, args.reps)
         half = torch.empty(nbytes // 2, dtype=torch.uint8, device=dev)
         row = {
@@ -113,9 +123,13 @@ def main(argv=None) -> int:
             "launches": launches, "call_ms": _events_ms(torch, fn, args.reps),
             "copy_ms": _events_ms(torch, half.clone, args.reps),
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-            "sort_ms": _events_ms(torch, sort_fn, args.reps),
             "kernels": kernels,
         }
+        if sort_fn is not None:
+            row["sort_ms"] = _events_ms(torch, sort_fn, args.reps)
+        if plain_fn is not None:
+            row["plain_ms"] = _events_ms(torch, plain_fn, args.reps)
+        del half
         rows.append(row)
         print(json.dumps(row), flush=True)
 
@@ -174,7 +188,31 @@ def main(argv=None) -> int:
                    lambda: torch.sort(flat, stable=True))
             del keys, runs, vals, flat
 
+    def ssd(bt=256, h=80, p=64, n=128):
+        from repro_torch.models import ssm
+
+        xbc = torch.randn((bt, 1, h * p + 2 * n), generator=gen, device=dev
+                          ).to(torch.bfloat16)
+        step_args = (xbc[..., :h * p].reshape(bt, h, p),
+                     torch.rand((bt, h), generator=gen, device=dev) * 0.1,
+                     xbc[..., h * p:h * p + n].reshape(bt, 1, n),
+                     xbc[..., h * p + n:].reshape(bt, 1, n),
+                     torch.log(torch.linspace(1.0, 16.0, h, device=dev)),
+                     torch.ones((h,), device=dev))
+        state = torch.randn((bt, h, p, n), generator=gen, device=dev)
+
+        def plain():
+            state.copy_(ssm.ssd_step(*step_args, state)[1])
+
+        update = getattr(ssm, "ssd_step_", None)
+        fn = plain if update is None else (lambda: update(*step_args, state))
+        report(f"ssd_step ({bt},{h},{p},{n}) bf16, state in place", fn,
+               2 * state.numel() * 4, plain_fn=plain)
+
     with torch.no_grad():
+        if args.ssd:
+            ssd()
+            return _write(args.json, rows)
         if args.entries:
             entries()
             return _write(args.json, rows)

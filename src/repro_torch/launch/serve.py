@@ -175,15 +175,18 @@ class LockstepDecoder:
         The prompt feed runs in the ``serve.prefill`` host span and each
         generated step (sample, then decode) in ``step_span("decode", i)``;
         every model step sits in a ``serve.decode`` span and every
-        sampling, key hash included, in a ``serve.sample`` span.  Each
-        generated step has the step label set and its tokens recorded
-        (``serve.sampled_tokens``, a snapshot on the device); obs is
-        flushed after each step, then ``after_step(i + 1)`` is called if
-        given."""
+        sampling, key hash included, in a ``serve.sample`` span.  Every
+        model step has the step label set: prompt position t of P is step
+        t - P, so the feed's records precede step 0's.  Each generated
+        step has its tokens recorded (``serve.sampled_tokens``, a snapshot
+        on the device); obs is flushed after each step, then
+        ``after_step(i + 1)`` is called if given."""
         tokens = torch.from_numpy(np.asarray(prompts, np.int64)).to(self.device)
         logits = None
+        n_prompt = tokens.shape[1]
         with obs.host_span("serve.prefill"):
-            for t in range(tokens.shape[1]):
+            for t in range(n_prompt):
+                obs.set_step(t - n_prompt)
                 with obs.span("serve.decode"):
                     logits = self._decode(tokens[:, t:t + 1])
         rows = torch.arange(self.batch, device=self.device)

@@ -9,7 +9,11 @@ O(1) recurrence on a carried state (:func:`ssd_step`), which the reference
 computes as ``ssd_chunked`` at ``s = chunk = 1``; the one-token form is
 the same function in a handful of ops, where the chunked form at length 1
 issues about thirty (masks and cumsums of 1 x 1), and the eager decode step
-pays for every launch on the host.
+pays for every launch on the host.  The decode step itself calls
+:func:`mamba2_decode_`, which writes a layer's cached states in place: on
+the card the recurrence is one kernel (``kernels/csrc/ssd_step.cu``) that
+reads and writes the float32 state once, elsewhere :func:`ssd_step` and a
+copy.
 
 Casts follow the reference step for step (a tolerance does not absorb a
 reordering): the gated norm multiplies by ``silu(z)`` in the compute dtype
@@ -24,15 +28,20 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
 
+from repro_torch import obs
+from repro_torch.kernels.ssd import ssd_step_update
 from repro_torch.models.layers import P, is_dtensor, truncated_normal
 
 __all__ = [
     "init_mamba2",
     "mamba2_specs",
     "mamba2_forward",
+    "mamba2_decode_",
     "ssd_chunked",
     "ssd_step",
+    "ssd_step_",
 ]
 
 
@@ -247,39 +256,153 @@ def ssd_step(x, dt, b, c, a_log, d_skip, h0):
     return _d_skip(y, x, d_skip), hnew
 
 
-def mamba2_forward(params, meta, x, *, chunk: int = 128, state=None):
-    """The Mamba2 block.  x: (b, s, d).  ``state = (conv_state,
-    ssm_state)`` continues a decode (``None`` for training and prefill);
-    a one-token call with a state takes :func:`ssd_step`.  Returns
-    ``(out, None)`` without a state, ``(out, (conv_state, ssm_state))``
-    with one: new tensors, the caller's state is not written."""
-    bt, s, _ = x.shape
+def ssd_step_(x, dt, b, c, a_log, d_skip, state):
+    """:func:`ssd_step` with the new state written into ``state`` (bt, h,
+    p, n) float32 in place; returns ``y``.  A state on the card takes the
+    kernel (:func:`repro_torch.kernels.ssd.ssd_step_update`), which reads
+    and writes it once and raises on what it does not take: a plain CUDA
+    tensor directly, a DTensor whose shards are on the card on each rank's
+    own rows and heads (:func:`_ssd_step_on_local_shards`).  CPU and fake
+    tensors run :func:`ssd_step` and copy its state back, with the same
+    bits.  Counts ``kernels.dispatch_calls`` (``op="ssd_step"``,
+    ``backend`` ``cuda`` or ``torch``) while obs is on."""
+    sharded = type(state) is not torch.Tensor and is_dtensor(state)
+    on_card = (state.is_cuda and (type(state) is torch.Tensor
+                                  or sharded and not is_fake(state)))
+    if obs.enabled():
+        obs.counter("kernels.dispatch_calls", 1, op="ssd_step",
+                    backend="cuda" if on_card else "torch")
+    if on_card:
+        if sharded:
+            return _ssd_step_on_local_shards(x, dt, b, c, a_log, d_skip,
+                                             state)
+        return ssd_step_update(x, dt, b, c, a_log, d_skip, state)
+    y, h_new = ssd_step(x, dt, b, c, a_log, d_skip, state)
+    state.copy_(h_new)
+    return y
+
+
+def _ssd_step_on_local_shards(x, dt, b, c, a_log, d_skip, state):
+    """The kernel on a DTensor state: each rank writes its own shard of
+    the state in place, from inputs laid out as that shard (its rows,
+    its heads, the B/C groups of those heads, one group replicated for
+    all).  The state may be sharded over rows (axis 0) and heads (axis
+    1, when they and the groups divide the mesh axis); the kernel is per
+    row and per head, so no collective runs inside it.  Returns ``y`` as a
+    DTensor laid out as the state's rows and heads."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = state.device_mesh
+    h, g = x.shape[1], b.shape[1]
+    lay_x, lay_bc, lay_h = [], [], []
+    for i, p in enumerate(state.placements):
+        size = mesh.size(i)
+        if p == Shard(0):
+            lay_x.append(Shard(0))
+            lay_bc.append(Shard(0))
+            lay_h.append(Replicate())
+        elif p == Shard(1) and h % size == 0 and (g == 1 or g % size == 0):
+            lay_x.append(Shard(1))
+            lay_bc.append(Shard(1) if g > 1 else Replicate())
+            lay_h.append(Shard(0))
+        elif p == Replicate():
+            lay_x.append(p)
+            lay_bc.append(p)
+            lay_h.append(p)
+        else:
+            raise ValueError(
+                f"ssd_step: the kernel takes a state sharded over its rows or "
+                f"its heads (dividing {size} with its {g} groups), got "
+                f"{state.placements} on {mesh}")
+
+    def local(t, placements):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        return t.redistribute(mesh, placements).to_local()
+
+    y = ssd_step_update(
+        local(x, lay_x), local(dt, lay_x), local(b, lay_bc),
+        local(c, lay_bc), local(a_log, lay_h), local(d_skip, lay_h),
+        state.to_local())
+    return DTensor.from_local(y, mesh, lay_x, run_check=False)
+
+
+def _mix_in(params, meta, x, conv_state):
+    """The block up to the scan: the input projection, the causal conv
+    (continued from ``conv_state``, or from zeros) and ``dt``'s softplus.
+    Returns ``(x, z, B, C, dt, new_conv_state)``, each with its sequence
+    axis."""
     proj = torch.einsum("bsd,de->bse", x, params["w_in"].to(x.dtype))
     xs, z, b, c, dt = _split_in(proj, meta)
     conv_in = torch.cat([xs, b, c], dim=-1)
     conv_out, new_conv_state = _causal_conv(
-        conv_in, params["conv_w"], params["conv_b"],
-        None if state is None else state[0])
+        conv_in, params["conv_w"], params["conv_b"], conv_state)
     d_inner = meta["d_inner"]
     gs = meta["ngroups"] * meta["d_state"]
     xs = conv_out[..., :d_inner]
     b = conv_out[..., d_inner:d_inner + gs]
     c = conv_out[..., d_inner + gs:]
+    dt = F.softplus(dt.float() + params["dt_bias"])  # (bt, s, h)
+    return xs, z, b, c, dt, new_conv_state
 
+
+def _mix_out(params, meta, y, z):
+    """The block after the scan: the gated norm and the output
+    projection.  y: the scan's output in ``z``'s dtype, any shape that
+    holds (bt, s, d_inner)."""
+    bt, s = z.shape[:2]
+    y = _gated_rmsnorm(y.reshape(bt, s, meta["d_inner"]), z,
+                       params["norm_scale"])
+    return torch.einsum("bse,ed->bsd", y, params["w_out"].to(z.dtype))
+
+
+def _one_token(meta, xs, dt, b, c):
+    """The scan's inputs of a one-token call, shaped for :func:`ssd_step`."""
+    bt = xs.shape[0]
     h, pdim = meta["nheads"], meta["headdim"]
     g, n = meta["ngroups"], meta["d_state"]
-    dt = F.softplus(dt.float() + params["dt_bias"])  # (bt, s, h)
+    return (xs.reshape(bt, h, pdim), dt[:, 0], b.reshape(bt, g, n),
+            c.reshape(bt, g, n))
+
+
+def mamba2_forward(params, meta, x, *, chunk: int = 128, state=None):
+    """The Mamba2 block.  x: (b, s, d).  ``state = (conv_state,
+    ssm_state)`` continues a decode (``None`` for training and prefill);
+    a one-token call with a state takes :func:`ssd_step`.  Returns
+    ``(out, None)`` without a state, ``(out, (conv_state, ssm_state))``
+    with one: new tensors, the caller's state is not written (the decode
+    step's in-place form is :func:`mamba2_decode_`)."""
+    bt, s, _ = x.shape
+    xs, z, b, c, dt, new_conv_state = _mix_in(
+        params, meta, x, None if state is None else state[0])
     if state is not None and s == 1:
-        y, h_last = ssd_step(
-            xs.reshape(bt, h, pdim), dt[:, 0], b.reshape(bt, g, n),
-            c.reshape(bt, g, n), params["A_log"], params["D"], state[1])
+        y, h_last = ssd_step(*_one_token(meta, xs, dt, b, c),
+                             params["A_log"], params["D"], state[1])
     else:
+        h, pdim = meta["nheads"], meta["headdim"]
+        g, n = meta["ngroups"], meta["d_state"]
         y, h_last = ssd_chunked(
             xs.reshape(bt, s, h, pdim), dt, b.reshape(bt, s, g, n),
             c.reshape(bt, s, g, n), params["A_log"], params["D"], meta,
             chunk=chunk, h0=None if state is None else state[1])
-    y = _gated_rmsnorm(y.reshape(bt, s, d_inner), z, params["norm_scale"])
-    out = torch.einsum("bse,ed->bsd", y, params["w_out"].to(x.dtype))
+    out = _mix_out(params, meta, y, z)
     if state is None:
         return out, None
     return out, (new_conv_state, h_last)
+
+
+def mamba2_decode_(params, meta, x, conv_state, ssm_state):
+    """One token of the Mamba2 block (x: (b, 1, d)) that overwrites the
+    layer's cached states in place: ``conv_state`` (b, d_conv-1,
+    conv_dim) with the conv's new window (inside the ``ssm.state_write``
+    span) and ``ssm_state`` (b, h, p, n) float32 by :func:`ssd_step_`.
+    Returns the block's output, equal bit for bit to
+    :func:`mamba2_forward`'s, whose states it writes; on the card the
+    output's scan sums in another order (a float32 rounding)."""
+    xs, z, b, c, dt, new_conv_state = _mix_in(params, meta, x, conv_state)
+    with obs.span("ssm.state_write"):
+        conv_state.copy_(new_conv_state)
+    y = ssd_step_(*_one_token(meta, xs, dt, b, c), params["A_log"],
+                  params["D"], ssm_state)
+    return _mix_out(params, meta, y, z)

@@ -751,20 +751,18 @@ def _decode_mla(cfg, params, data, x, cos, sin, positions, pos):
 
 def _decode_ssm(cfg, params, data, x, cos, sin, positions, pos):
     """The Mamba2 stack, one token: each layer's conv and SSM states are
-    overwritten in place.  In a hybrid, the shared attention block runs
-    after every ``attn_every``-th layer (application ``idx // attn_every``
-    after layer ``idx``), on its own k/v entry of the cache."""
+    overwritten in place (``mamba2_decode_``; on the card the SSM state by
+    one kernel that reads and writes it once).  In a hybrid, the shared
+    attention block runs after every ``attn_every``-th layer (application
+    ``idx // attn_every`` after layer ``idx``), on its own k/v entry of the
+    cache."""
     meta = mamba_meta(cfg)
     conv_c, st_c = data[:2]
     for i, lp in enumerate(params["layers"]):
         with obs.span("model.ssm"):
             h = _norm(cfg, lp["ln"], x)
-            out, (conv_n, st_n) = ssm_mod.mamba2_forward(
-                lp["mamba"], meta, h, state=(conv_c[i], st_c[i]))
-            with obs.span("ssm.state_write"):
-                conv_c[i].copy_(conv_n)
-                st_c[i].copy_(st_n)
-            x = x + out
+            x = x + ssm_mod.mamba2_decode_(lp["mamba"], meta, h, conv_c[i],
+                                           st_c[i])
         if cfg.attn_every and (i + 1) % cfg.attn_every == 0:
             app = i // cfg.attn_every
             x = _shared_attention(cfg, params["shared_attn"], data[2][app],

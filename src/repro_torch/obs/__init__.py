@@ -104,8 +104,10 @@ on both serving paths (``LockstepDecoder``, ``DecodeEngine``):
 ``model.embed``              embedding and rope or position tables.
 ``model.attn``               one layer's attention with its cache write
                              (gqa, MLA, a hybrid's shared block).
-``model.ssm``                one Mamba2 layer and its state write-back;
-``ssm.state_write``          inside it, the two copies into the cache.
+``model.ssm``                one Mamba2 layer and its state writes;
+``ssm.state_write``          inside it, the conv state's copy into the
+                             cache (the recurrence writes the SSM state
+                             in place).
 ``model.mlp``                one dense FFN; ``model.moe`` one MoE layer,
                              inside it ``moe.route`` (router product and
                              top-k), ``moe.dispatch`` (assignment sort,

@@ -853,3 +853,163 @@ def test_sharded_sort_two_gloo_ranks_on_card(cuda_device):
     for _, equal, wide, groups in got:
         assert all(equal.values()), equal
         assert wide > 0 and groups > 0
+
+
+# --- the SSD decode step: ssd_step.cu ------------------------------------------------
+
+
+def _ssd_case(bt, h, p, n, g, dtype, device, seed):
+    """One token's inputs shaped as the decode step makes them: x, B and C
+    slices of one conv output row (so their rows are strided), dt after
+    the softplus, and a stack of three layers' float32 states."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    d_inner = h * p
+    conv_out = torch.randn((bt, 1, d_inner + 2 * g * n), generator=gen,
+                           device=device).to(dtype)
+    x = conv_out[..., :d_inner].reshape(bt, h, p)
+    b = conv_out[..., d_inner:d_inner + g * n].reshape(bt, g, n)
+    c = conv_out[..., d_inner + g * n:].reshape(bt, g, n)
+    dt = torch.nn.functional.softplus(
+        torch.randn((bt, 1, h), generator=gen, device=device) - 2.0)[:, 0]
+    a_log = torch.log(torch.linspace(1.0, 16.0, h, device=device))
+    d_skip = torch.randn((h,), generator=gen, device=device)
+    states = torch.randn((3, bt, h, p, n), generator=gen, device=device)
+    return (x, dt, b, c, a_log, d_skip), states
+
+
+def _bf16_step(v, up: bool):
+    """The bfloat16 values one step above (``up``) or below ``v``: bf16 is
+    sign and magnitude, so a step is one unit of the magnitude bits."""
+    u = v.view(torch.int16).int() & 0xFFFF
+    mag, neg = u & 0x7FFF, (u & 0x8000) != 0
+    away = up != neg  # a step up from a positive value grows its magnitude
+    mag = torch.where(away, mag + 1, mag - 1)
+    neg = torch.where(mag < 0, ~neg, neg)  # a step through zero
+    bits = torch.where(neg, 0x8000, 0) | mag.abs()
+    return torch.where(bits >= 0x8000, bits - 0x10000, bits).short().view(
+        torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("bt,h,p,n", [(256, 80, 64, 128),  # mamba2-2.7b
+                                      (32, 64, 64, 64),    # zamba2-1.2b
+                                      (8, 8, 16, 16)])     # smoke width
+def test_ssd_step_kernel_matches_plain_on_card(cuda_device, bt, h, p, n, g,
+                                               dtype):
+    """The kernel against ``ssd_step`` plus ``copy_``: the layer's state
+    bit for bit (the same three roundings a value: both products, then
+    the sum), the neighbouring layers' slices untouched, one launch.
+
+    ``y`` sums ``C[n] * h'[p, n]`` over n in another order than the plain
+    version's einsum.  With float32 inputs it is held within float32
+    summation error: 1e-5 of the sum of its terms' magnitudes (a sum's
+    rounding error scales with its terms, not with its value, which mixed
+    signs can cancel to far below them; the worst case of two orders of
+    128 terms is 2 * 127 * 2^-24 = 1.5e-5 of it).  With bf16 inputs the
+    float32 sums round to bf16, so a sum that lands beside a rounding
+    boundary may round the other way: y before the skip is the plain one or
+    its bf16 neighbour, and the D skip's bf16 add follows exactly."""
+    from repro_torch.kernels.ssd import ssd_step_update
+    from repro_torch.models import ssm
+
+    args, states = _ssd_case(bt, h, p, n, g, dtype, cuda_device, seed=n + g)
+    want_y, want_h = ssm.ssd_step(*args, states[1])
+    before = states.clone()
+    launches = ssd_step_update.launches
+    got_y = ssd_step_update(*args, states[1])
+    torch.cuda.synchronize()
+    assert ssd_step_update.launches == launches + 1
+    assert torch.equal(states[1], want_h)
+    assert torch.equal(states[0], before[0]) and torch.equal(states[2], before[2])
+    assert got_y.dtype == dtype and got_y.shape == want_y.shape
+    c_heads = args[3].float().repeat_interleave(h // g, dim=1)
+    if dtype == torch.float32:
+        terms = torch.einsum("bhpn,bhn->bhp", want_h.abs(), c_heads.abs())
+        assert bool(((got_y - want_y).abs() <= 1e-5 * terms).all())
+    else:
+        # y before the skip is the plain one or a bf16 step beside it; the
+        # skip is then added exactly as the plain version adds it.
+        pre = torch.einsum("bhpn,bhn->bhp", want_h, c_heads).to(dtype)
+        skip = (args[5][:, None] * args[0].float()).to(dtype)
+        ok = torch.zeros_like(got_y, dtype=torch.bool)
+        for y_pre in (pre, _bf16_step(pre, True), _bf16_step(pre, False)):
+            ok |= (y_pre + skip) == got_y
+        bad = (~ok).nonzero()[:5].unbind(1)
+        assert bool(ok.all()), (
+            f"{int((~ok).sum())} of {ok.numel()} outside one step: pre "
+            f"{pre[bad].tolist()} skip {skip[bad].tolist()} want "
+            f"{want_y[bad].tolist()} got {got_y[bad].tolist()}")
+
+
+def test_ssd_step_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    from repro_torch.kernels.ssd import ssd_step_update
+
+    args, states = _ssd_case(4, 8, 16, 16, 1, torch.float32, cuda_device, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_step_update(*args, states[1].transpose(-1, -2).contiguous()
+                        .transpose(-1, -2))
+    x, dt, b, c, a_log, d_skip = args
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ssd_step_update(x.half(), dt, b.half(), c.half(), a_log, d_skip,
+                        states[1])
+    args6, states6 = _ssd_case(4, 8, 16, 6, 1, torch.float32, cuda_device, 0)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        ssd_step_update(*args6, states6[1])
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ssd_step_update(*(t.cpu() for t in args), states[1].cpu())
+
+
+def test_ssd_step_on_dtensor_shards_of_two_gloo_ranks_on_card(cuda_device):
+    """``ssd_step_`` on a DTensor cache whose shards are on the card: two
+    gloo ranks on ``cuda:0`` each launch the kernel once a case on their
+    own rows or heads (inputs whole, replicated or sharded, one or two B/C
+    groups; no collective), their shard of the state equal to the whole
+    plain step's bit for bit and ``y`` within float32 summation of it,
+    laid out as the state; a state sharded over the head dimension is
+    refused."""
+    import _torch_ssd_ranks
+
+    _torch_ssd_ranks.check(_torch_ssd_ranks.spawn("cuda:0"))
+
+
+def test_lockstep_decode_step_launches_the_ssd_kernel_on_card(cuda_device,
+                                                              monkeypatch):
+    """One lock-step ``decode_step`` of the smoke mamba2 on the card runs
+    the kernel once a layer.  Against the same step with the plain
+    ``ssd_step`` plus ``copy_`` in the kernel's place: the first layer's
+    states bit for bit (the later layers' inputs carry the kernel's other
+    summation order of y), the logits within bf16 rounding."""
+    from repro_torch.configs.registry import ARCHS, smoke_config
+    from repro_torch.kernels.ssd import ssd_step_update
+    from repro_torch.models import ssm
+    from repro_torch.models import transformer as tm
+
+    cfg = smoke_config(ARCHS["mamba2-2.7b"])
+    params = tm.init_params(cfg, torch.Generator(device=cuda_device)
+                            .manual_seed(0), device=cuda_device)
+    cp = tm.compute_params(cfg, params)
+    tokens = torch.arange(4, device=cuda_device).reshape(4, 1) + 3
+    caches, logits = [], []
+    for route in ("kernel", "plain"):
+        if route == "plain":
+            def plain(*args):
+                y, h_new = ssm.ssd_step(*args)
+                args[-1].copy_(h_new)
+                return y
+
+            monkeypatch.setattr(ssm, "ssd_step_update", plain)
+        cache = tm.init_cache(cfg, 4, 8, device=cuda_device)
+        cache.data[1].normal_(generator=torch.Generator(device=cuda_device)
+                              .manual_seed(1))
+        launches = ssd_step_update.launches
+        out, cache = tm.decode_step(cfg, cp, cache, tokens)
+        torch.cuda.synchronize()
+        assert ssd_step_update.launches == launches + (
+            cfg.n_layers if route == "kernel" else 0)
+        caches.append(cache)
+        logits.append(out)
+    assert torch.equal(caches[0].data[0][0], caches[1].data[0][0])
+    assert torch.equal(caches[0].data[1][0], caches[1].data[1][0])
+    scale = float(logits[1].abs().max())
+    assert float((logits[0] - logits[1]).abs().max()) <= 2e-2 * scale

@@ -30,6 +30,7 @@ from repro.configs.registry import ARCHS as REF_ARCHS, smoke_config as ref_smoke
 from repro.launch import serve as ref_serve
 from repro.models import ssm as ref_ssm
 from repro.models import transformer as ref_tf
+from repro_torch import obs
 from repro_torch.configs.registry import ARCHS, smoke_config
 from repro_torch.launch import serve
 from repro_torch.models import ssm
@@ -211,6 +212,76 @@ def test_mamba2_forward_decode_leaves_the_state_alone():
     _, (conv_n, st_n) = ssm.mamba2_forward(tp, meta, x, state=(conv, st))
     assert not conv.any() and not st.any()
     assert conv_n.any() and st_n.any()
+
+
+# --- the decode step's in-place forms ---------------------------------------------
+
+
+def _layer_states(shape, seed, layers=3):
+    """A stack of ``layers`` float32 states; the tests write the middle one."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn((layers, *shape), generator=g)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("g", [1, 2])
+def test_ssd_step_in_place_equals_step_and_copy(g, dtype):
+    """``ssd_step_`` on the CPU writes the layer's slice of the cache bit
+    for bit as ``ssd_step`` plus ``copy_``, returns the same ``y``, leaves
+    the other layers alone and counts one ``kernels.dispatch_calls`` with
+    ``op="ssd_step"`` and ``backend="torch"``."""
+    x, dt, b, c, a_log, d, _ = _ssd_inputs(g, seed=10 + g, s=1)
+    tx, tb, tc = (_both(a, dtype)[1][:, 0] for a in (x, b, c))
+    args = (tx, torch.from_numpy(dt[:, 0]), tb, tc, torch.from_numpy(a_log),
+            torch.from_numpy(d))
+    cache = _layer_states((BT, H, P, N), seed=g)
+    before = cache.clone()
+    want_y, want_h = ssm.ssd_step(*args, cache[1])
+    with obs.capture() as recs:
+        got_y = ssm.ssd_step_(*args, cache[1])
+        obs.flush()
+        calls = [r for r in recs if r["metric"] == "kernels.dispatch_calls"]
+    assert torch.equal(got_y, want_y) and got_y.dtype == want_y.dtype
+    assert torch.equal(cache[1], want_h)
+    assert torch.equal(cache[0], before[0]) and torch.equal(cache[2], before[2])
+    assert [(r["value"], r["labels"]) for r in calls] == [
+        (1, {"op": "ssd_step", "backend": "torch"})]
+
+
+@pytest.mark.parametrize("ngroups", [1, 2])
+def test_mamba2_decode_in_place_equals_forward(ngroups):
+    """``mamba2_decode_`` gives ``mamba2_forward``'s output bit for bit
+    over three tokens and writes its two new states into the layer's
+    slices of the caches; the other layers' slices stay."""
+    _, tp, meta = _block(ngroups)
+    rng = np.random.default_rng(8)
+    conv = torch.from_numpy(rng.standard_normal(
+        (3, BT, 3, meta["conv_dim"])).astype(np.float32))
+    st = _layer_states((BT, meta["nheads"], meta["headdim"], meta["d_state"]),
+                       seed=ngroups)
+    conv0, st0 = conv.clone(), st.clone()
+    state = (conv[1].clone(), st[1].clone())
+    for _ in range(3):
+        x = torch.from_numpy(rng.standard_normal((BT, 1, 32)).astype(np.float32))
+        want, state = ssm.mamba2_forward(tp, meta, x, state=state)
+        got = ssm.mamba2_decode_(tp, meta, x, conv[1], st[1])
+        assert torch.equal(got, want)
+        assert torch.equal(conv[1], state[0]) and torch.equal(st[1], state[1])
+    for i in (0, 2):
+        assert torch.equal(conv[i], conv0[i]) and torch.equal(st[i], st0[i])
+
+
+def test_ssd_step_in_place_on_dtensor_shards_of_two_ranks():
+    """The route a DTensor cache on the card takes
+    (``_ssd_step_on_local_shards``), on two gloo ranks of CPU DTensors
+    with the plain in-place step standing in for the kernel: each rank's
+    shard of the state, over rows or heads, with inputs whole, replicated
+    or sharded and one or two B/C groups, equals the whole plain step's bit
+    for bit; ``y`` is within float32 summation of it, laid out as the
+    state; a state sharded over the head dimension is refused."""
+    import _torch_ssd_ranks
+
+    _torch_ssd_ranks.check(_torch_ssd_ranks.spawn("cpu"))
 
 
 # --- caches and init --------------------------------------------------------------
