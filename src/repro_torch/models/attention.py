@@ -12,10 +12,13 @@ probabilities chunk by chunk from the saved ``out``, ``m`` and ``l``.
 GQA is written with a (kv_head, group) layout: K and V are never
 repeated up to ``n_heads``.  The products are ``torch.einsum`` calls, as
 the reference leaves them to XLA, and every cast is the reference's.
+DTensors attend on each rank's own rows and heads
+(``layers.on_local_shards`` on ``layers.row_head_layout``).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -25,8 +28,11 @@ from repro_torch.models.layers import (
     apply_rope,
     init_rmsnorm,
     is_dtensor,
+    layout_placements,
+    on_local_shards,
     rmsnorm,
     rmsnorm_specs,
+    row_head_layout,
     truncated_normal,
 )
 
@@ -109,25 +115,21 @@ def qkv_project(params, x, cos, sin, positions, qk_norm=False,
 
 def _on_local_heads(fn, q, k, v, **kw):
     """``fn(q, k, v, **kw)`` for DTensor inputs, run on each rank's local
-    batch rows and query heads: attention is independent per row and per
-    head, so every rank attends its own block, as GSPMD partitions it,
-    and no op of the attention itself goes through DTensor (which cannot
-    flatten a batch dim and a head dim that are both sharded).  q keeps
-    its batch (dim 0) and head (dim 2) shards, everything else is
-    gathered; k and v follow q, their heads repeated for each query
-    head's group when the kv heads do not divide over the head shards
-    (8 kv heads, 32 query heads over a 16-wide ``model`` axis)."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-
+    batch rows and query heads (q's layout, :func:`row_head_layout`): no
+    op of the attention goes through DTensor, which cannot flatten a batch
+    dim and a head dim that are both sharded.  k and v follow q, their
+    heads repeated for each query head's group when the kv heads do not
+    divide over the head shards (8 kv heads, 32 query heads over a
+    16-wide ``model`` axis)."""
     mesh = q.device_mesh
-    pl = [p if p in (Shard(0), Shard(2)) else Replicate()
-          for p in q.placements]
-    ways = math.prod(mesh.size(i) for i, p in enumerate(pl) if p == Shard(2))
+    tags = row_head_layout(mesh, q.placements, 2)
+    ways = math.prod(mesh.size(i) for i, t in enumerate(tags) if t == "heads")
     if k.shape[2] % ways:
         g = q.shape[2] // k.shape[2]
         k, v = k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
-    q, k, v = (t.redistribute(mesh, pl).to_local() for t in (q, k, v))
-    return DTensor.from_local(fn(q, k, v, **kw), mesh, pl, run_check=False)
+    pl = layout_placements(tags, 0, 2)
+    return on_local_shards(functools.partial(fn, **kw), mesh,
+                           [(q, pl), (k, pl), (v, pl)], pl)
 
 
 def _chunk_layout(q, k, v, q_chunk, kv_chunk):
@@ -198,8 +200,7 @@ def flash_attention(q, k, v, *, causal: bool = True, q_chunk: int = 1024,
     q: (b, sq, h, hd); k: (b, skv, n_kv, hd); v: (b, skv, n_kv, hdv).
     Returns (b, sq, h, hdv) in ``q``'s dtype.  ``causal_skip`` (with
     ``causal`` and more than one query chunk) runs each query chunk only
-    over the KV chunks that reach its last position.  DTensor inputs
-    attend on each rank's rows and heads (:func:`_on_local_heads`).  Autograd
+    over the KV chunks that reach its last position.  Autograd
     differentiates the loops as they are; :func:`make_flash_attention_vjp`
     is the form that recomputes the probabilities instead.
     """

@@ -14,6 +14,13 @@ The activation constraints (``set_batch_axes``, ``constrain_batch_leading``,
 ``constrain_spec``) are no-ops until a launcher sets the batch axes, as in
 the reference; then they redistribute a DTensor to the spec's placements
 on its own mesh, and leave a plain tensor as it is.
+
+A layer that runs on a rank's own shards of DTensor inputs (attention,
+the SSD scan and step, the expert segments, the decode caches' writes)
+goes through :func:`on_local_shards`, with the layout of
+:func:`row_head_layout` where the work is independent per row and per
+head; :func:`write_cache` writes a token's cache entries, plain or
+sharded.
 """
 
 from __future__ import annotations
@@ -28,6 +35,11 @@ __all__ = [
     "P",
     "spec_placements",
     "is_dtensor",
+    "on_local_shards",
+    "row_head_layout",
+    "layout_placements",
+    "shard_offset",
+    "write_cache",
     "set_batch_axes",
     "get_batch_axes",
     "constrain_batch_leading",
@@ -101,6 +113,121 @@ def is_dtensor(t) -> bool:
     from torch.distributed.tensor import DTensor
 
     return isinstance(t, DTensor)
+
+
+def on_local_shards(fn, mesh, args, out=None):
+    """``fn`` on this rank's blocks of DTensors on ``mesh``: each of
+    ``args``, ``(tensor, placements)`` pairs in ``fn``'s order, is
+    redistributed to its placements (a plain tensor counts as replicated,
+    ``None`` is passed on) and given local; a block aliases its DTensor's
+    when the placements already match, so ``fn`` may write it in place.
+    The output is wrapped on ``mesh`` with the placements ``out`` (a tuple
+    of them for a tuple of outputs; ``None``: returned as it is), unchecked
+    (``run_check=False``): no collective runs inside ``fn``."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    def local(t, placements):
+        if t is None:
+            return None
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        if tuple(t.placements) != tuple(placements):
+            t = t.redistribute(mesh, placements)
+        return t.to_local()
+
+    def wrap(r, placements):
+        return DTensor.from_local(r, mesh, placements, run_check=False)
+
+    res = fn(*(local(t, p) for t, p in args))
+    if out is None:
+        return res
+    return tuple(map(wrap, res, out)) if isinstance(out, tuple) else wrap(
+        res, out)
+
+
+def row_head_layout(mesh, placements, head_axis, *, heads=None, groups=1,
+                    on=None) -> list:
+    """The layout of work independent per row and per head, a tag a mesh
+    dimension: ``"rows"`` where ``placements`` shard dim 0, else
+    ``"heads"`` where they shard ``head_axis`` (given ``on``: on the mesh
+    dimension named ``on``) and, given ``heads``, the heads and the B/C
+    ``groups`` divide its size (one group is replicated), else ``None``."""
+    from torch.distributed.tensor import Shard
+
+    def tag(i, p):
+        size = mesh.size(i)
+        if p == Shard(0):
+            return "rows"
+        if ((mesh.mesh_dim_names[i] == on if on else p == Shard(head_axis))
+                and (heads is None or heads % size == 0
+                     and (groups == 1 or groups % size == 0))):
+            return "heads"
+        return None
+
+    return [tag(i, p) for i, p in enumerate(placements)]
+
+
+def layout_placements(tags, rows=None, heads=None) -> list:
+    """Placements under :func:`row_head_layout`'s ``tags``: ``Shard(rows)``
+    and ``Shard(heads)`` on the row and head dimensions (replicated where
+    that dim is ``None``), ``Replicate()`` on the others."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    dims = {"rows": rows, "heads": heads}
+    return [Replicate() if dims.get(t) is None else Shard(dims[t])
+            for t in tags]
+
+
+def shard_offset(t, dim: int) -> int:
+    """First global index of this rank's even shard of the DTensor ``t``'s
+    ``dim`` (mesh dimensions that shard it taken major first)."""
+    from torch.distributed.tensor import Shard
+
+    mesh = t.device_mesh
+    block, ways = 0, 1
+    for i, p in enumerate(t.placements):
+        if p == Shard(dim):
+            block = block * mesh.size(i) + mesh.get_local_rank(i)
+            ways *= mesh.size(i)
+    return block * (t.shape[dim] // ways)
+
+
+def write_cache(bufs, values, pos, rows=None) -> None:
+    """Write one token's entry of every row into each cache ``(b, max_len,
+    ...)`` of ``bufs`` from the ``(b, 1, ...)`` of ``values``, in the
+    cache's dtype: at the shared position ``pos`` ``(1,)``
+    (``index_copy_``), or, given ``rows`` (``arange(b)``), row ``r`` at
+    ``pos[r]`` (a scatter).  A DTensor cache sharded on its rows and
+    positions is written on each rank's local tensor, at the rows it holds
+    and the positions that fall in its slice: it never travels (DTensor
+    alone would gather it)."""
+    if not is_dtensor(bufs[0]):
+        for buf, value in zip(bufs, values):
+            if rows is None:
+                buf.index_copy_(1, pos, value.to(buf.dtype))
+            else:
+                buf[rows, pos] = value[:, 0].to(buf.dtype)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+
+    idx = (pos.full_tensor() if is_dtensor(pos) else pos).expand(
+        values[0].shape[0])
+    for buf, value in zip(bufs, values):
+        row0, pos0 = shard_offset(buf, 0), shard_offset(buf, 1)
+
+        def write(local, value):
+            n_rows, n_pos = local.shape[:2]
+            at = idx.to(local.device).long()[row0:row0 + n_rows] - pos0
+            inside = ((at >= 0) & (at < n_pos)).reshape(
+                -1, *(1,) * (value.dim() - 1))
+            at = at.clamp(0, n_pos - 1)
+            r = torch.arange(n_rows, device=local.device)
+            local[r, at] = torch.where(inside, value, local[r, at])
+
+        rows_on = [p if p == Shard(0) else Replicate() for p in buf.placements]
+        on_local_shards(write, buf.device_mesh, [
+            (buf, buf.placements), (value[:, 0].to(buf.dtype), rows_on)])
 
 
 # Activation batch axes, set by the launcher or dry-run before a step

@@ -25,11 +25,12 @@ per expert with the remainder to the first experts: the products' FLOPs
 (``sum_e s_e d ff 2``) and buffer sizes do not depend on the split.  With
 the experts sharded over a mesh (DTensor weights), each rank multiplies
 only its own experts' segments (expert parallelism) and the outputs sum
-over the expert axis.  Both combines scatter each
-assignment's weighted output to its unique index ``token * k + choice``
-and sum over the choice axis -- a fixed order, with no atomics, the order
-of :func:`moe_dense_reference` (the reference's capacity combine adds
-into the token rows instead; the two agree within float32 rounding).
+over the expert axis (``layers.on_local_shards``).  Both combines
+scatter each assignment's weighted output to its unique index ``token *
+k + choice`` and sum over the choice axis -- a fixed order, with no
+atomics, the order of :func:`moe_dense_reference` (the reference's
+capacity combine adds into the token rows instead; the two agree within
+float32 rounding).
 GShard-style local dispatch (``dispatch_groups > 1``) fills per-group
 capacity slots and swaps the (group, expert) slot axes with
 ``distributed.exchange.slot_transpose``, as the reference does.
@@ -61,6 +62,8 @@ from repro_torch.models.layers import (
     is_dtensor,
     mlp,
     mlp_specs,
+    on_local_shards,
+    shard_offset,
     truncated_normal,
 )
 
@@ -213,32 +216,27 @@ def _segments_ep(x, ws, segments, fn):
     placements name on dim 0: each rank gathers the rows and runs only its
     own experts' segments, so the result is a partial sum over those axes
     (other rows are zeros there)."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor import Partial, Replicate, Shard
 
     mesh = ws[0].device_mesh
-    ep = [i for i, p in enumerate(ws[0].placements) if p == Shard(0)]
-    local = [w.redistribute(mesh, [Shard(0) if i in ep else Replicate()
-                                   for i in range(mesh.ndim)]).to_local()
-             for w in ws]
-    xs = x.redistribute(mesh, [Replicate()] * mesh.ndim).to_local() \
-        if isinstance(x, DTensor) else x
-    rank, ways = 0, 1  # this rank's block of experts, major axis first
-    for i in ep:
-        rank = rank * mesh.size(i) + mesh.get_local_rank(i)
-        ways *= mesh.size(i)
-    first = rank * (ws[0].shape[0] // ways)
-    parts, at = [], 0
-    for e, lo, hi in segments:
-        if 0 <= e - first < local[0].shape[0]:
-            y = fn(xs[lo:hi], *(w[e - first] for w in local))
-            parts += [xs.new_zeros((lo - at, y.shape[-1])), y]
-            at = hi
+    ep = [p == Shard(0) for p in ws[0].placements]
+    first = shard_offset(ws[0], 0)  # this rank's first expert
     width = ws[-1].shape[-1]
-    parts.append(xs.new_zeros((xs.shape[0] - at, width)))
-    return DTensor.from_local(
-        torch.cat(parts), mesh,
-        [Partial() if i in ep else Replicate() for i in range(mesh.ndim)],
-        run_check=False)
+
+    def run(xs, *local):
+        parts, at = [], 0
+        for e, lo, hi in segments:
+            if 0 <= e - first < local[0].shape[0]:
+                y = fn(xs[lo:hi], *(w[e - first] for w in local))
+                parts += [xs.new_zeros((lo - at, y.shape[-1])), y]
+                at = hi
+        parts.append(xs.new_zeros((xs.shape[0] - at, width)))
+        return torch.cat(parts)
+
+    w_on = [Shard(0) if s else Replicate() for s in ep]
+    return on_local_shards(
+        run, mesh, [(x, [Replicate()] * mesh.ndim), *((w, w_on) for w in ws)],
+        [Partial() if s else Replicate() for s in ep])
 
 
 def grouped_gemm(x: torch.Tensor, w: torch.Tensor, group_sizes):

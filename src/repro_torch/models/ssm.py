@@ -13,7 +13,8 @@ pays for every launch on the host.  The decode step itself calls
 :func:`mamba2_decode_`, which writes a layer's cached states in place: on
 the card the recurrence is one kernel (``kernels/csrc/ssd_step.cu``) that
 reads and writes the float32 state once, elsewhere :func:`ssd_step` and a
-copy.
+copy.  DTensors run on each rank's own rows and heads
+(``layers.on_local_shards`` on ``layers.row_head_layout``).
 
 Casts follow the reference step for step (a tolerance does not absorb a
 reordering): the gated norm multiplies by ``silu(z)`` in the compute dtype
@@ -32,7 +33,14 @@ from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch import obs
 from repro_torch.kernels.ssd import ssd_step_update
-from repro_torch.models.layers import P, is_dtensor, truncated_normal
+from repro_torch.models.layers import (
+    P,
+    is_dtensor,
+    layout_placements,
+    on_local_shards,
+    row_head_layout,
+    truncated_normal,
+)
 
 __all__ = [
     "init_mamba2",
@@ -192,46 +200,32 @@ def ssd_chunked(x, dt, b, c, a_log, d_skip, meta=None, *, chunk: int = 128,
     return y, hprev.reshape(bt, h, pdim, n)
 
 
+def _ssd_on_shards(fn, mesh, tags, head_axis, args, with_state):
+    """``fn(x, dt, B, C, A_log, D, state)`` on each rank's rows and heads
+    of ``tags`` (a ``row_head_layout``): x and dt with their heads on
+    ``head_axis``, B and C with their groups (one group replicated for
+    all), A_log and D on the heads, the state on its rows and heads.
+    Returns y laid out as x (and the state's layout, ``with_state``)."""
+    g = args[2].shape[head_axis]
+    seq = layout_placements(tags, 0, head_axis)
+    grp = layout_placements(tags, 0, head_axis if g > 1 else None)
+    vec = layout_placements(tags, None, 0)
+    state = layout_placements(tags, 0, 1)
+    return on_local_shards(
+        fn, mesh, zip(args, (seq, seq, grp, grp, vec, vec, state)),
+        (seq, state) if with_state else seq)
+
+
 def _ssd_on_local_heads(x, dt, b, c, a_log, d_skip, meta, *, chunk, h0):
     """:func:`ssd_chunked` on DTensors, run on each rank's batch rows and
-    heads: the scan is independent per row and per head, so the heads
-    shard over the ``model`` axis (where the reference's specs put
-    ``A_log``, ``D`` and ``dt_bias``) when they divide it, the B/C groups
-    with them (or replicated, one group for all heads), and no op of the
-    scan goes through DTensor."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-
-    mesh = x.device_mesh
-    h, g = x.shape[2], b.shape[2]
-    rows, heads = [], []
-    for i, p in enumerate(x.placements):
-        size = mesh.size(i)
-        rows.append(p == Shard(0))
-        heads.append(not rows[-1] and mesh.mesh_dim_names[i] == "model"
-                     and h % size == 0 and (g == 1 or g % size == 0))
-
-    def pl(head_dim):
-        return [Shard(0) if r else Shard(head_dim) if hd else Replicate()
-                for r, hd in zip(rows, heads)]
-
-    def grp(head_dim):
-        return [Shard(0) if r else (Shard(head_dim) if hd and g > 1
-                                    else Replicate())
-                for r, hd in zip(rows, heads)]
-
-    def local(t, placements):
-        if not isinstance(t, DTensor):
-            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
-                                   run_check=False)
-        return t.redistribute(mesh, placements).to_local()
-
-    vec = [Shard(0) if hd else Replicate() for hd in heads]
-    y, h_last = ssd_chunked(
-        local(x, pl(2)), local(dt, pl(2)), local(b, grp(2)), local(c, grp(2)),
-        local(a_log, vec), local(d_skip, vec), meta, chunk=chunk,
-        h0=None if h0 is None else local(h0, pl(1)))
-    return (DTensor.from_local(y, mesh, pl(2), run_check=False),
-            DTensor.from_local(h_last, mesh, pl(1), run_check=False))
+    heads: the heads shard over the ``model`` axis (where the reference's
+    specs put ``A_log``, ``D`` and ``dt_bias``) when they divide it."""
+    mesh, g = x.device_mesh, b.shape[2]
+    tags = row_head_layout(mesh, x.placements, 2, heads=x.shape[2], groups=g,
+                           on="model")
+    return _ssd_on_shards(
+        lambda *t: ssd_chunked(*t[:6], meta, chunk=chunk, h0=t[6]), mesh,
+        tags, 2, (x, dt, b, c, a_log, d_skip, h0), True)
 
 
 def ssd_step(x, dt, b, c, a_log, d_skip, h0):
@@ -284,48 +278,24 @@ def ssd_step_(x, dt, b, c, a_log, d_skip, state):
 
 def _ssd_step_on_local_shards(x, dt, b, c, a_log, d_skip, state):
     """The kernel on a DTensor state: each rank writes its own shard of
-    the state in place, from inputs laid out as that shard (its rows,
-    its heads, the B/C groups of those heads, one group replicated for
-    all).  The state may be sharded over rows (axis 0) and heads (axis
-    1, when they and the groups divide the mesh axis); the kernel is per
-    row and per head, so no collective runs inside it.  Returns ``y`` as a
-    DTensor laid out as the state's rows and heads."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    the state in place, from inputs laid out as that shard.  The state may
+    be sharded over rows (axis 0) and heads (axis 1, when they and the
+    groups divide the mesh axis); the kernel is per row and per head, so
+    no collective runs inside it.  Returns ``y`` as a DTensor laid out as
+    the state's rows and heads."""
+    from torch.distributed.tensor import Replicate
 
-    mesh = state.device_mesh
-    h, g = x.shape[1], b.shape[1]
-    lay_x, lay_bc, lay_h = [], [], []
-    for i, p in enumerate(state.placements):
-        size = mesh.size(i)
-        if p == Shard(0):
-            lay_x.append(Shard(0))
-            lay_bc.append(Shard(0))
-            lay_h.append(Replicate())
-        elif p == Shard(1) and h % size == 0 and (g == 1 or g % size == 0):
-            lay_x.append(Shard(1))
-            lay_bc.append(Shard(1) if g > 1 else Replicate())
-            lay_h.append(Shard(0))
-        elif p == Replicate():
-            lay_x.append(p)
-            lay_bc.append(p)
-            lay_h.append(p)
-        else:
+    mesh, g = state.device_mesh, b.shape[1]
+    tags = row_head_layout(mesh, state.placements, 1, heads=x.shape[1],
+                           groups=g)
+    for i, (t, p) in enumerate(zip(tags, state.placements)):
+        if t is None and p != Replicate():
             raise ValueError(
                 f"ssd_step: the kernel takes a state sharded over its rows or "
-                f"its heads (dividing {size} with its {g} groups), got "
-                f"{state.placements} on {mesh}")
-
-    def local(t, placements):
-        if not isinstance(t, DTensor):
-            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
-                                   run_check=False)
-        return t.redistribute(mesh, placements).to_local()
-
-    y = ssd_step_update(
-        local(x, lay_x), local(dt, lay_x), local(b, lay_bc),
-        local(c, lay_bc), local(a_log, lay_h), local(d_skip, lay_h),
-        state.to_local())
-    return DTensor.from_local(y, mesh, lay_x, run_check=False)
+                f"its heads (dividing {mesh.size(i)} with its {g} groups), "
+                f"got {state.placements} on {mesh}")
+    return _ssd_on_shards(ssd_step_update, mesh, tags, 1,
+                          (x, dt, b, c, a_log, d_skip, state), False)
 
 
 def _mix_in(params, meta, x, conv_state):
@@ -366,30 +336,20 @@ def _one_token(meta, xs, dt, b, c):
             c.reshape(bt, g, n))
 
 
-def mamba2_forward(params, meta, x, *, chunk: int = 128, state=None):
-    """The Mamba2 block.  x: (b, s, d).  ``state = (conv_state,
-    ssm_state)`` continues a decode (``None`` for training and prefill);
-    a one-token call with a state takes :func:`ssd_step`.  Returns
-    ``(out, None)`` without a state, ``(out, (conv_state, ssm_state))``
-    with one: new tensors, the caller's state is not written (the decode
-    step's in-place form is :func:`mamba2_decode_`)."""
+def mamba2_forward(params, meta, x, *, chunk: int = 128):
+    """The Mamba2 block over a sequence (training and prefill).  x: (b, s,
+    d).  Returns ``(out, None)``, as the reference's call without a state
+    does; the one-token form, which writes a decode step's cached states,
+    is :func:`mamba2_decode_`."""
     bt, s, _ = x.shape
-    xs, z, b, c, dt, new_conv_state = _mix_in(
-        params, meta, x, None if state is None else state[0])
-    if state is not None and s == 1:
-        y, h_last = ssd_step(*_one_token(meta, xs, dt, b, c),
-                             params["A_log"], params["D"], state[1])
-    else:
-        h, pdim = meta["nheads"], meta["headdim"]
-        g, n = meta["ngroups"], meta["d_state"]
-        y, h_last = ssd_chunked(
-            xs.reshape(bt, s, h, pdim), dt, b.reshape(bt, s, g, n),
-            c.reshape(bt, s, g, n), params["A_log"], params["D"], meta,
-            chunk=chunk, h0=None if state is None else state[1])
-    out = _mix_out(params, meta, y, z)
-    if state is None:
-        return out, None
-    return out, (new_conv_state, h_last)
+    xs, z, b, c, dt, _ = _mix_in(params, meta, x, None)
+    h, pdim = meta["nheads"], meta["headdim"]
+    g, n = meta["ngroups"], meta["d_state"]
+    y, _ = ssd_chunked(
+        xs.reshape(bt, s, h, pdim), dt, b.reshape(bt, s, g, n),
+        c.reshape(bt, s, g, n), params["A_log"], params["D"], meta,
+        chunk=chunk)
+    return _mix_out(params, meta, y, z), None
 
 
 def mamba2_decode_(params, meta, x, conv_state, ssm_state):
@@ -397,9 +357,10 @@ def mamba2_decode_(params, meta, x, conv_state, ssm_state):
     layer's cached states in place: ``conv_state`` (b, d_conv-1,
     conv_dim) with the conv's new window (inside the ``ssm.state_write``
     span) and ``ssm_state`` (b, h, p, n) float32 by :func:`ssd_step_`.
-    Returns the block's output, equal bit for bit to
-    :func:`mamba2_forward`'s, whose states it writes; on the card the
-    output's scan sums in another order (a float32 rounding)."""
+    Returns the block's output; on the CPU, bit for bit the block's
+    output and states computed with :func:`ssd_step` on new tensors; on
+    the card the output's scan sums in another order (a float32
+    rounding)."""
     xs, z, b, c, dt, new_conv_state = _mix_in(params, meta, x, conv_state)
     with obs.span("ssm.state_write"):
         conv_state.copy_(new_conv_state)

@@ -35,7 +35,8 @@ experts in float32.
 The decode steps update the cache tensors in place (the reference returns
 new ones): the ragged step writes slot ``s``'s entry at position
 ``lengths[s]`` of its own cache rows, the lock-step one every row's at the
-shared ``length``; an SSM layer overwrites its conv and SSM states.
+shared ``length`` (``layers.write_cache``, shard-locally on a DTensor
+cache); an SSM layer overwrites its conv and SSM states.
 Under a profiler each piece of a step records its span (``repro_torch.obs``):
 ``model.embed``, ``model.attn``, ``model.ssm`` (with ``ssm.state_write``),
 ``model.mlp``, ``model.moe`` and ``model.head``.
@@ -613,46 +614,6 @@ def _ffn_block(cfg, lp, x, *, moe_layer):
         return x + ff
 
 
-def _shard_offset(t, mesh, dim: int) -> int:
-    """First global index of this rank's even shard of ``t``'s ``dim``
-    (mesh dimensions that shard it taken major first)."""
-    from torch.distributed.tensor import Shard
-
-    block, ways = 0, 1
-    for i, p in enumerate(t.placements):
-        if p == Shard(dim):
-            block = block * mesh.size(i) + mesh.get_local_rank(i)
-            ways *= mesh.size(i)
-    return block * (t.shape[dim] // ways)
-
-
-def _write_rows(buf, idx, value) -> None:
-    """``buf[r, idx[r]] = value[r]`` for every row ``r`` of a cache
-    DTensor ``buf`` ``(b, max_len, ...)`` sharded on its rows and
-    positions: each rank writes the rows it holds at the positions that
-    fall in its slice, on its local tensor (a position-sharded cache never
-    travels; DTensor alone would gather it).  ``idx``: ``(b,)`` positions,
-    ``value``: ``(b, ...)``."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-
-    mesh = buf.device_mesh
-    if isinstance(idx, DTensor):
-        idx = idx.full_tensor()
-    rows_on = [p if p == Shard(0) else Replicate() for p in buf.placements]
-    if isinstance(value, DTensor):
-        value = value.redistribute(mesh, rows_on).to_local()
-    local = buf.to_local()
-    offset = [_shard_offset(buf, mesh, d) for d in (0, 1)]
-    n_rows, n_pos = local.shape[0], local.shape[1]
-    at = idx.to(local.device).long()[offset[0]:offset[0] + n_rows] - offset[1]
-    inside = (at >= 0) & (at < n_pos)
-    at = at.clamp(0, n_pos - 1)
-    rows = torch.arange(n_rows, device=local.device)
-    keep = local[rows, at]
-    mask = inside.reshape(-1, *(1,) * (value.dim() - 1))
-    local[rows, at] = torch.where(mask, value, keep)
-
-
 def decode_step_ragged(cfg: ModelConfig, params, cache: Cache,
                        tokens: torch.Tensor, lengths: torch.Tensor):
     """One token for every *slot* at per-slot positions (continuous
@@ -685,12 +646,7 @@ def decode_step_ragged(cfg: ModelConfig, params, cache: Cache,
                                            qk_norm=cfg.qk_norm,
                                            clip_qkv=cfg.clip_qkv)
             # per-slot scatter: slot b's token lands at its own position
-            if L.is_dtensor(kc):
-                _write_rows(kc[i], idx, k[:, 0].to(kc.dtype))
-                _write_rows(vc[i], idx, v[:, 0].to(vc.dtype))
-            else:
-                kc[i, rows, idx] = k[:, 0].to(kc.dtype)
-                vc[i, rows, idx] = v[:, 0].to(vc.dtype)
+            L.write_cache((kc[i], vc[i]), (k, v), idx, rows)
             o = attn_mod.decode_attention(q, kc[i], vc[i], lengths + 1)
             x = x + attn_mod.attention_output(lp["attn"], o, x.dtype)
         x = _ffn_block(cfg, lp, x, moe_layer=moe_layer)
@@ -734,14 +690,7 @@ def _decode_mla(cfg, params, data, x, cos, sin, positions, pos):
             h = _norm(cfg, lp["ln1"], x)
             q_nope, q_rope, c_kv, k_rope = mla_mod.mla_latents(
                 lp["attn"], h, cos, sin, positions, dims)
-            if L.is_dtensor(ckv):
-                _write_rows(ckv[i], at.expand(x.shape[0]),
-                            c_kv[:, 0].to(ckv.dtype))
-                _write_rows(kr[i], at.expand(x.shape[0]),
-                            k_rope[:, 0].to(kr.dtype))
-            else:
-                ckv[i].index_copy_(1, at, c_kv.to(ckv.dtype))
-                kr[i].index_copy_(1, at, k_rope.to(kr.dtype))
+            L.write_cache((ckv[i], kr[i]), (c_kv, k_rope), at)
             o = mla_mod.mla_attention_decode(lp["attn"], q_nope, q_rope, dims,
                                              ckv[i], kr[i], pos + 1)
             x = x + o
@@ -779,12 +728,7 @@ def _shared_attention(cfg, lp, kc, vc, x, cos, sin, positions, pos):
         q, k, v = attn_mod.qkv_project(lp["attn"], h, cos, sin, positions,
                                        qk_norm=cfg.qk_norm,
                                        clip_qkv=cfg.clip_qkv)
-        if L.is_dtensor(kc):
-            _write_rows(kc, at.expand(x.shape[0]), k[:, 0].to(kc.dtype))
-            _write_rows(vc, at.expand(x.shape[0]), v[:, 0].to(vc.dtype))
-        else:
-            kc.index_copy_(1, at, k.to(kc.dtype))
-            vc.index_copy_(1, at, v.to(vc.dtype))
+        L.write_cache((kc, vc), (k, v), at)
         o = attn_mod.decode_attention(q, kc, vc, pos + 1)
         x = x + attn_mod.attention_output(lp["attn"], o, x.dtype)
     return _ffn_block(cfg, lp, x, moe_layer=False)

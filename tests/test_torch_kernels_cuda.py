@@ -968,9 +968,9 @@ def test_ssd_step_on_dtensor_shards_of_two_gloo_ranks_on_card(cuda_device):
     plain step's bit for bit and ``y`` within float32 summation of it,
     laid out as the state; a state sharded over the head dimension is
     refused."""
-    import _torch_ssd_ranks
+    import _torch_shard_ranks
 
-    _torch_ssd_ranks.check(_torch_ssd_ranks.spawn("cuda:0"))
+    _torch_shard_ranks.check(_torch_shard_ranks.spawn("cuda:0"))
 
 
 def test_lockstep_decode_step_launches_the_ssd_kernel_on_card(cuda_device,

@@ -26,6 +26,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import _torch_shard_ranks
+
 from repro.configs.registry import ARCHS as REF_ARCHS, smoke_config as ref_smoke
 from repro.launch import serve as ref_serve
 from repro.models import ssm as ref_ssm
@@ -180,36 +182,48 @@ def test_mamba2_forward_prefill_matches_reference(ngroups):
     _close(got, want)
 
 
+def _one_token_block(params, meta, x, state):
+    """The oracle of the in-place one-token block: the Mamba2 block of
+    ``x`` (b, 1, d) from ``state = (conv_state, ssm_state)`` through
+    ``ssd_step``, returning ``(out, (conv_state, ssm_state))`` as new
+    tensors and writing nothing."""
+    xs, z, b, c, dt, conv = ssm._mix_in(params, meta, x, state[0])
+    y, h = ssm.ssd_step(*ssm._one_token(meta, xs, dt, b, c), params["A_log"],
+                        params["D"], state[1])
+    return ssm._mix_out(params, meta, y, z), (conv, h)
+
+
 @pytest.mark.parametrize("ngroups", [1, 2])
 def test_mamba2_forward_decode_matches_reference(ngroups):
-    """Three one-token calls from a prefill's states (the decode form
-    takes ``ssd_step``) against the reference's chunk-1 calls."""
+    """Three one-token calls of the decode step's block
+    (``mamba2_decode_``) from a prefill's states, written into cloned
+    caches, against the reference's chunk-1 calls of ``mamba2_forward``."""
     rp, tp, meta = _block(ngroups)
     rng = np.random.default_rng(7)
     conv = rng.standard_normal((BT, 3, meta["conv_dim"])).astype(np.float32)
     st = rng.standard_normal((BT, meta["nheads"], meta["headdim"],
                               meta["d_state"])).astype(np.float32)
     rstate = (jnp.asarray(conv), jnp.asarray(st))
-    tstate = (torch.from_numpy(conv), torch.from_numpy(st))
+    tconv, tst = torch.from_numpy(conv).clone(), torch.from_numpy(st).clone()
     for _ in range(3):
         x = rng.standard_normal((BT, 1, 32)).astype(np.float32)
         want, rstate = ref_ssm.mamba2_forward(rp, meta, jnp.asarray(x),
                                               chunk=1, state=rstate)
-        got, tstate = ssm.mamba2_forward(tp, meta, torch.from_numpy(x),
-                                         state=tstate)
+        got = ssm.mamba2_decode_(tp, meta, torch.from_numpy(x), tconv, tst)
         _close(got, want)
-        np.testing.assert_array_equal(tstate[0].numpy(), np.asarray(rstate[0]))
-        _close(tstate[1], rstate[1])
+        np.testing.assert_array_equal(tconv.numpy(), np.asarray(rstate[0]))
+        _close(tst, rstate[1])
 
 
 def test_mamba2_forward_decode_leaves_the_state_alone():
-    """The block returns new states; the decode step writes them into
-    the cache itself."""
+    """The one-token oracle returns new states and writes none of the
+    caller's, so the in-place form's writes are held against values it
+    did not make."""
     _, tp, meta = _block()
     conv = torch.zeros((1, 3, meta["conv_dim"]))
     st = torch.zeros((1, meta["nheads"], meta["headdim"], meta["d_state"]))
     x = torch.ones((1, 1, 32))
-    _, (conv_n, st_n) = ssm.mamba2_forward(tp, meta, x, state=(conv, st))
+    _, (conv_n, st_n) = _one_token_block(tp, meta, x, (conv, st))
     assert not conv.any() and not st.any()
     assert conv_n.any() and st_n.any()
 
@@ -250,7 +264,7 @@ def test_ssd_step_in_place_equals_step_and_copy(g, dtype):
 
 @pytest.mark.parametrize("ngroups", [1, 2])
 def test_mamba2_decode_in_place_equals_forward(ngroups):
-    """``mamba2_decode_`` gives ``mamba2_forward``'s output bit for bit
+    """``mamba2_decode_`` gives the one-token oracle's output bit for bit
     over three tokens and writes its two new states into the layer's
     slices of the caches; the other layers' slices stay."""
     _, tp, meta = _block(ngroups)
@@ -263,7 +277,7 @@ def test_mamba2_decode_in_place_equals_forward(ngroups):
     state = (conv[1].clone(), st[1].clone())
     for _ in range(3):
         x = torch.from_numpy(rng.standard_normal((BT, 1, 32)).astype(np.float32))
-        want, state = ssm.mamba2_forward(tp, meta, x, state=state)
+        want, state = _one_token_block(tp, meta, x, state)
         got = ssm.mamba2_decode_(tp, meta, x, conv[1], st[1])
         assert torch.equal(got, want)
         assert torch.equal(conv[1], state[0]) and torch.equal(st[1], state[1])
@@ -271,17 +285,31 @@ def test_mamba2_decode_in_place_equals_forward(ngroups):
         assert torch.equal(conv[i], conv0[i]) and torch.equal(st[i], st0[i])
 
 
-def test_ssd_step_in_place_on_dtensor_shards_of_two_ranks():
-    """The route a DTensor cache on the card takes
-    (``_ssd_step_on_local_shards``), on two gloo ranks of CPU DTensors
-    with the plain in-place step standing in for the kernel: each rank's
-    shard of the state, over rows or heads, with inputs whole, replicated
-    or sharded and one or two B/C groups, equals the whole plain step's bit
-    for bit; ``y`` is within float32 summation of it, laid out as the
-    state; a state sharded over the head dimension is refused."""
-    import _torch_ssd_ranks
+@pytest.fixture(scope="module")
+def shard_ranks():
+    """One spawned pair of gloo ranks for every case below."""
+    return _torch_shard_ranks.spawn("cpu", layers=True)
 
-    _torch_ssd_ranks.check(_torch_ssd_ranks.spawn("cpu"))
+
+@pytest.mark.parametrize("case", ["ssd_step", *_torch_shard_ranks.LAYER_CASES])
+def test_ssd_step_in_place_on_dtensor_shards_of_two_ranks(case, shard_ranks):
+    """Two gloo ranks of CPU DTensors against the plain single process.
+    ``ssd_step``: the route a DTensor cache on the card takes
+    (``_ssd_step_on_local_shards``), with the plain in-place step standing
+    in for the kernel: each rank's shard of the state, over rows or heads,
+    with inputs whole, replicated or sharded and one or two B/C groups,
+    equals the whole plain step's bit for bit; ``y`` is within float32
+    summation of it, laid out as the state; a state sharded over the head
+    dimension is refused.  The other cases run the rest of the model
+    layers through ``layers.on_local_shards``: ``ssd_chunked`` on row and
+    head shards (state bit for bit), the expert segments with
+    expert-parallel weights (``grouped_gemm``, the dropless MoE layer at
+    dbrx's smoke width) and a decode cache's token write on caches sharded
+    over positions or rows (bit for bit)."""
+    if case == "ssd_step":
+        _torch_shard_ranks.check(shard_ranks)
+    else:
+        _torch_shard_ranks.check_layer(shard_ranks, case)
 
 
 # --- caches and init --------------------------------------------------------------
