@@ -530,6 +530,8 @@ class Smoke:
         for e in prof.key_averages():
             dev = getattr(e, "self_device_time_total",
                           getattr(e, "self_cuda_time_total", 0))
+            if getattr(e, "is_user_annotation", False):
+                continue  # a span's device-side row covers kernels counted below
             if dev > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
                 kernels[e.key] = (e.count, dev / 1e3)
             elif e.key.startswith("cuda") and e.count:
@@ -551,13 +553,6 @@ class Smoke:
         for name in KERNELS:
             getattr(self.km, name).launches = 0
         self.kssd.ssd_step_update.launches = 0
-
-    def read_ssd_launches(self) -> int:
-        """The SSD kernel's launches since :meth:`reset`."""
-        self.torch.cuda.synchronize()
-        n = self.kssd.ssd_step_update.launches
-        self.launches["ssd_step"] += n
-        return n
 
     def read_launches(self) -> dict:
         self.torch.cuda.synchronize()
@@ -1452,17 +1447,25 @@ class Smoke:
             # a generated step: its sample, then the decode of the sampled token
             times = [(d[0].elapsed_time(d[1]), s[0].elapsed_time(s[1]))
                      for d, s in zip(dec.decodes[p.shape[1]:], dec.samples)]
-            return {b: out[b].tolist() for b in range(batch)}, len(dec.decodes), secs, times
+            return ({b: out[b].tolist() for b in range(batch)}, len(dec.decodes),
+                    secs, times, dec.graph_replays)
 
         run("topk", "cuda", prompts[:, :2], 2)  # warm-up
         self.reset()
-        got, steps, secs, times = run("topk", "cuda")
+        # The main-path run under the profiler: a graph replay launches its
+        # kernels without the Python wrappers that count launches, so the
+        # SSD kernel's launches are its device records (one a graph node).
+        main = []
+        _, _, kernels = self.device_profile(lambda: main.append(run("topk", "cuda")))
+        got, steps, secs, times, replays = main[0]
         launched = self.read_launches()["merge_kway_tile_groups"]
         ssm_layers = cfg.n_layers if cache_kind(cfg) in ("ssm", "hybrid") else 0
-        ssd_launched = self.read_ssd_launches()
+        ssd_launched = sum(c for name, (c, _) in kernels.items()
+                           if "ssd_step_kernel" in name)
+        self.launches["ssd_step"] += ssd_launched
         plain, *_ = run("topk", "torch")
         self.reset()
-        greedy, g_steps, g_secs, g_times = run("greedy", "cuda")
+        greedy, g_steps, g_secs, g_times, _ = run("greedy", "cuda")
         g_launched = self.read_launches()["merge_kway_tile_groups"]
         differ = [b for b in got if got[b] != plain[b]]
         for label, res, st, sec, tm_ in (("topk", got, steps, secs, times),
@@ -1470,19 +1473,24 @@ class Smoke:
             log_steps(f"{phase} {cfg.name} lock-step {label}", res, st, sec, tm_)
         log(f"  {phase} {cfg.name} lock-step: merge_kway_tile_groups launches "
             f"{launched} (topk), {g_launched} (greedy); ssd_step launches "
-            f"{ssd_launched} in the topk run's {steps} decodes ({ssm_layers} "
-            f"a decode expected); {len(differ)} of {batch} "
+            f"{ssd_launched} on the device in the topk run's {steps} decodes, "
+            f"{replays} of them graph replays ({ssm_layers} a decode "
+            f"expected); {len(differ)} of {batch} "
             f"token streams differ between the cuda and torch merge backends")
         bad_tok = [b for res in (got, greedy) for b, t in res.items()
                    if len(t) != n_new or not all(0 <= v < cfg.vocab for v in t)]
+        # an ssm or hybrid step is captured after one eager step and replayed
+        too_few = ssm_layers and replays < steps - 2
         if not launched or (greedy_launches and not g_launched) or differ or bad_tok \
-                or ssd_launched != ssm_layers * steps:
+                or ssd_launched != ssm_layers * steps or too_few:
             raise AssertionError(f"lock-step {cfg.name}: launches {launched}/"
-                                 f"{g_launched}, ssd_step {ssd_launched}, streams "
+                                 f"{g_launched}, ssd_step {ssd_launched}, graph "
+                                 f"replays {replays} of {steps} decodes, streams "
                                  f"differ {differ}, bad rows {bad_tok}")
 
         # Five steady steps (sample, then decode) after the prompt, then one
-        # more with every grouped launch held against its plain version.
+        # more, its decode run eagerly, with every grouped launch and every
+        # SSD launch held against its plain version.
         dec = LockstepDecoder(cfg, params, batch=batch, max_len=prompt_len + 8,
                               top_k=50, seed=7, device=self.dev)
         rows = torch.arange(batch, device=self.dev)
@@ -1491,16 +1499,17 @@ class Smoke:
             logits = [dec._decode(toks[:, t:t + 1]) for t in range(prompt_len)][-1:]
             done = [0]
 
-            def step():
+            def step(decode=dec._decode):
                 keys = request_keys(7, rows, torch.full_like(rows, done[0]))
                 nxt = dec._sample(keys, logits[0])
-                logits[0] = dec._decode(nxt[:, None].long())
+                logits[0] = decode(nxt[:, None].long())
                 done[0] += 1
 
-            self.log_profile(f"lock-step batch {batch}",
-                             lambda: [step() for _ in range(5)])
+            self.log_profile(f"lock-step batch {batch} ({dec.graph_captures} "
+                             f"graph captures)", lambda: [step() for _ in range(5)])
         with self.checked_ssd() as ssd_calls:
-            self.record_grouped(step, lambda g, kk, w: f"{cfg.name} step ({g},{kk},{w})")
+            self.record_grouped(lambda: step(dec._step),
+                                lambda g, kk, w: f"{cfg.name} step ({g},{kk},{w})")
         if ssm_layers:
             self.record_ssd(f"{cfg.name} step", ssd_calls)
         if len(ssd_calls) != ssm_layers:

@@ -16,9 +16,10 @@ Archs with an ``mla`` cache (deepseek-v3), an ``ssm`` cache (mamba2) or
 a ``hybrid`` one (zamba2) take the lock-step path
 (:class:`LockstepDecoder`): a fixed batch of ``max_batch`` rows starts
 together, the prompt is fed one token per ``decode_step``, and each row's
-tokens are drawn with the per-request samplers.  ``--moe-dispatch``
-overrides the MoE configs' dispatch.  Weights are random, from
-``init_params`` with a seeded generator.
+tokens are drawn with the per-request samplers; on the card, for a model
+without MoE layers, the step is replayed as one captured CUDA graph.
+``--moe-dispatch`` overrides the MoE configs' dispatch.  Weights are
+random, from ``init_params`` with a seeded generator.
 
 ``--metrics-dir`` turns on ``repro_torch.obs`` (JSONL records under that
 directory, stamped with the decode step and flushed once a step);
@@ -39,9 +40,12 @@ import torch
 from repro_torch import obs
 from repro_torch.configs.registry import ARCHS, smoke_config
 from repro_torch.models.transformer import (
+    Cache,
     cache_kind,
     compute_params,
     decode_step,
+    decode_step_capturable,
+    decode_step_tables,
     init_cache,
     init_params,
 )
@@ -129,6 +133,43 @@ def _serve_continuous(cfg, params, args, device, metrics_dir=""):
     return results
 
 
+@dataclasses.dataclass
+class _StepGraph:
+    """One ``decode_step`` captured as a CUDA graph.  ``key`` is what the
+    graph is bound to (:func:`_step_key`), ``params`` the tree it reads,
+    held so that the key's identity of it stays unique; ``tables`` the
+    position tables it reads (:func:`decode_step_tables`), held so that
+    their cache cannot free them; ``tokens`` ``(batch, 1)`` int64 and
+    ``length`` are the buffers it reads, ``length`` advanced by one on
+    every replay; ``logits`` is the buffer every replay writes.  Dropping
+    the object frees the graph and its private memory pool."""
+
+    key: tuple
+    params: dict
+    tables: tuple
+    tokens: torch.Tensor
+    length: torch.Tensor
+    graph: torch.cuda.CUDAGraph
+    logits: torch.Tensor
+
+
+def _step_key(params, cache, tokens) -> tuple | None:
+    """What a captured decode step is bound to: the identity of
+    ``params``, the cache's kind, the tokens' shape and, for every cache
+    tensor, its address, shape, strides and dtype.  A graph replays only
+    while all of these are equal, so a cache made anew elsewhere (or
+    resized) is captured again.  ``None`` where a cache tensor or the
+    length is not a plain CUDA tensor (a DTensor, a fake or CPU tensor)."""
+    if type(cache.length) is not torch.Tensor:
+        return None
+    key = [id(params), cache.kind, tuple(tokens.shape)]
+    for t in cache.data:
+        if type(t) is not torch.Tensor or not t.is_cuda:
+            return None
+        key.append((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype))
+    return tuple(key)
+
+
 class LockstepDecoder:
     """Fixed-batch decode over one cache of ``batch`` rows: every row
     starts together, the prompt is fed one token per ``decode_step`` and
@@ -137,7 +178,19 @@ class LockstepDecoder:
     token index ``i`` uses the key ``request_keys(seed, b, i)``; ``topp`` keeps
     the reference's nucleus of 0.9 over 64 candidates, and the cache is
     bfloat16, as in the reference.  ``params`` is the model's tree on
-    ``device`` (the params' device by default)."""
+    ``device`` (the params' device by default).
+
+    On the card the decode step is replayed as one CUDA graph where it
+    can be: the device is CUDA, the cache's tensors are plain tensors, the
+    model says the step on that cache can be captured
+    (:func:`decode_step_capturable`) and obs is off (so every record
+    point fires each step while it is on).  The first step on a cache runs eagerly on the stream the capture
+    uses; the next captures ``decode_step`` and every later one replays
+    it, for as long as the cache's storage is the same (:func:`_step_key`;
+    the graph keeps no reference to the cache).  ``graph_captures`` and
+    ``graph_replays`` count both; the ``serve.graph_capture`` and
+    ``serve.graph_replay`` spans cover them.  Everywhere else each step
+    runs ``decode_step`` eagerly."""
 
     def __init__(self, cfg, params, *, batch: int, max_len: int,
                  sampler: str = "topk", top_k: int = 50, seed: int = 42,
@@ -153,11 +206,87 @@ class LockstepDecoder:
         self.sampler = sampler
         self.top_k = min(top_k, cfg.vocab)
         self.seed = seed
+        self.graph_captures = 0
+        self.graph_replays = 0
+        self._graph = None  # the captured step (_StepGraph)
+        self._warm = None  # the key of the last step run on _stream
+        self._stream = None
 
     def _decode(self, tokens: torch.Tensor) -> torch.Tensor:
+        """One model step: ``(batch, vocab)`` float32 logits, the cache
+        advanced in place.  Replays the captured step where the decoder
+        can (see the class), else runs :meth:`_step`."""
+        key = None
+        if (self.device.type == "cuda" and not obs.enabled()
+                and decode_step_capturable(self.cfg, self.cache)):
+            key = _step_key(self.params, self.cache, tokens)
+        if key is None:
+            return self._step(tokens)
+        if self._graph is not None and self._graph.key != key:
+            self._graph = None  # bound to storage that has gone
+        if self._graph is None:
+            if self._warm != key:
+                return self._warm_step(key, tokens)
+            self._capture(key, tokens)
+        return self._replay(tokens)
+
+    def _step(self, tokens: torch.Tensor) -> torch.Tensor:
         logits, self.cache = decode_step(self.cfg, self.params, self.cache,
                                          tokens)
         return logits
+
+    def _warm_step(self, key, tokens):
+        """An eager step on the capture stream, so that what the first
+        call sets up (the kernels' build, the BLAS handles and workspaces,
+        the rope tables) is made outside the capture."""
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        here = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(here)
+        with torch.cuda.stream(self._stream):
+            logits = self._step(tokens)
+        here.wait_stream(self._stream)
+        self._warm = key
+        return logits
+
+    def _capture(self, key, tokens) -> None:
+        cache = self.cache
+        toks = torch.empty(tuple(tokens.shape), dtype=torch.long,
+                           device=self.device)
+        length = torch.empty_like(cache.length, device=self.device)
+        graph = torch.cuda.CUDAGraph()
+        torch.cuda.synchronize(self.device)
+        with obs.span("serve.graph_capture"), torch.cuda.stream(self._stream):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                logits, out = decode_step(
+                    self.cfg, self.params,
+                    Cache(cache.kind, cache.data, length), toks)
+                length.copy_(out.length)
+            finally:
+                graph.capture_end()
+        if len(out.data) != len(cache.data) or any(
+                a is not b for a, b in zip(out.data, cache.data)):
+            raise RuntimeError(f"{self.cfg.name}: decode_step returned new "
+                               "cache tensors; a replay needs them updated "
+                               "in place")
+        tables = decode_step_tables(self.cfg, cache, toks.device)
+        self._graph = _StepGraph(key, self.params, tables, toks, length,
+                                 graph, logits)
+        self.graph_captures += 1
+
+    def _replay(self, tokens):
+        """The captured step on this step's tokens and the cache's length;
+        the logits are copied out, so no later step overwrites them."""
+        g = self._graph
+        with obs.span("serve.graph_replay"):
+            g.tokens.copy_(tokens)
+            if self.cache.length is not g.length:
+                g.length.copy_(self.cache.length)
+                self.cache = Cache(self.cache.kind, self.cache.data, g.length)
+            g.graph.replay()
+            self.graph_replays += 1
+            return g.logits.clone()
 
     def _sample(self, keys: torch.Tensor, logits: torch.Tensor):
         if self.sampler == "greedy":

@@ -69,7 +69,9 @@ __all__ = [
     "cache_specs",
     "compute_params",
     "decode_step",
+    "decode_step_capturable",
     "decode_step_ragged",
+    "decode_step_tables",
     "hidden_states",
     "init_cache",
     "init_params",
@@ -568,20 +570,35 @@ def _sinusoid_table(seq: int, d: int, dtype, device):
     return L.sinusoidal_positions(seq, d, dtype, device=device)
 
 
+def decode_step_tables(cfg: ModelConfig, cache: Cache, device) -> tuple:
+    """The position tables a decode step on ``cache`` reads, from their
+    cache: ``(table,)`` of sinusoidal positions or the rope ``(cos, sin)``,
+    for the cache's ``max_len``.  A captured step holds them, so that no
+    eviction from the cache frees them while it replays."""
+    max_len = _cache_max_len(cache)
+    if cfg.pos_emb == "sinusoidal":
+        return (_sinusoid_table(max_len + 1, cfg.d_model, _dtype(cfg.dtype),
+                                device),)
+    hd = cfg.qk_rope_head_dim if cfg.mla else cfg.resolved_head_dim
+    return tuple(_rope_tables(hd, max_len + 1, cfg.rope_theta, device))
+
+
+def decode_step_capturable(cfg: ModelConfig, cache: Cache) -> bool:
+    """Whether :func:`decode_step` on ``cache`` can be captured as a CUDA
+    graph: an ``ssm`` or ``hybrid`` cache of a model without MoE layers,
+    whose dispatch reads segment sizes on the host."""
+    return cache.kind in ("ssm", "hybrid") and not cfg.moe
+
+
 def _embed_and_tables(cfg, params, cache, tokens, pos):
     """Token embeddings (plus sinusoidal positions at ``pos``, a ``(b,)``
     or scalar tensor) and the rope tables for the cache's ``max_len``."""
-    dtype = _dtype(cfg.dtype)
-    dev = tokens.device
     with obs.span("model.embed"):
-        x = L.embed(params["embed"], tokens, dtype)
-        max_len = _cache_max_len(cache)
+        x = L.embed(params["embed"], tokens, _dtype(cfg.dtype))
+        tables = decode_step_tables(cfg, cache, tokens.device)
         if cfg.pos_emb == "sinusoidal":
-            table = _sinusoid_table(max_len + 1, cfg.d_model, dtype, dev)
-            return x + table[pos].reshape(-1, 1, cfg.d_model), None, None
-        hd = cfg.qk_rope_head_dim if cfg.mla else cfg.resolved_head_dim
-        cos, sin = _rope_tables(hd, max_len + 1, cfg.rope_theta, dev)
-        return x, cos, sin
+            return x + tables[0][pos].reshape(-1, 1, cfg.d_model), None, None
+        return x, *tables
 
 
 def _logits(cfg, params, x):

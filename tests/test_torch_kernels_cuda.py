@@ -11,9 +11,15 @@ import torch
 
 from repro_torch.core.corank import co_rank_batch
 from repro_torch.core.kway import co_rank_kway_batch
+from repro_torch import obs
+from repro_torch.configs.registry import ARCHS, smoke_config
 from repro_torch.external.api import external_argsort, external_sort
 from repro_torch.kernels import merge as km
 from repro_torch.kernels import ops
+from repro_torch.launch.serve import LockstepDecoder
+from repro_torch.models import transformer as tm
+from repro_torch.models.transformer import (Cache, decode_step, init_cache,
+                                            init_params)
 
 DTYPES = [torch.int32, torch.int64, torch.float32, torch.float64,
           torch.float16, torch.bfloat16]
@@ -1013,3 +1019,138 @@ def test_lockstep_decode_step_launches_the_ssd_kernel_on_card(cuda_device,
     assert torch.equal(caches[0].data[1][0], caches[1].data[1][0])
     scale = float(logits[1].abs().max())
     assert float((logits[0] - logits[1]).abs().max()) <= 2e-2 * scale
+
+
+# --- the lock-step decode step replayed as a CUDA graph ----------------------------
+
+
+class _Graphed(LockstepDecoder):
+    """The lock-step decoder, keeping every logits tensor a step returns."""
+
+    def _decode(self, tokens):
+        out = super()._decode(tokens)
+        self.logits.append(out)
+        return out
+
+
+class _Eager(_Graphed):
+    """The same, with every step run by ``decode_step``."""
+
+    def _decode(self, tokens):
+        out, self.cache = decode_step(self.cfg, self.params, self.cache, tokens)
+        self.logits.append(out)
+        return out
+
+
+def _smoke(arch, device):
+    cfg = smoke_config(ARCHS[arch])
+    gen = torch.Generator(device=device).manual_seed(0)
+    return cfg, init_params(cfg, gen, device=device)
+
+
+def _zero_in_place(dec):
+    """The decoder's cache tensors zeroed, with a new length of 0."""
+    for t in dec.cache.data:
+        t.zero_()
+    dec.cache = Cache(dec.cache.kind, dec.cache.data,
+                      torch.zeros((), dtype=torch.int32, device=dec.device))
+
+
+def _generate_both(cfg, params, device, sampler, batches):
+    """Both decoders through ``batches`` (``(prompts, new tokens, how the
+    next cache is made)``, the last a name or a function of both
+    decoders); asserts equal tokens, logits and caches bit for bit after
+    each batch; returns the graphed decoder."""
+    decs = [cls(cfg, params, batch=4, max_len=12, sampler=sampler, top_k=8,
+                seed=2**31 + 5, device=device) for cls in (_Graphed, _Eager)]
+    kept = []
+    for prompts, new, fresh in batches:
+        if callable(fresh):
+            fresh(decs)
+        for dec in decs:
+            if fresh == "in_place":  # the same tensors, zeroed, length 0
+                _zero_in_place(dec)
+            elif fresh == "new_alive":  # new storage, the old cache kept
+                kept.append(dec.cache)
+                dec.cache = init_cache(cfg, 4, 12, device=device)
+            dec.logits = []
+        got, want = (dec.generate(prompts, new) for dec in decs)
+        np.testing.assert_array_equal(got, want)
+        assert len(decs[0].logits) == len(decs[1].logits)
+        for a, b in zip(decs[0].logits, decs[1].logits):
+            assert torch.equal(a, b)
+        assert int(decs[0].cache.length) == int(decs[1].cache.length) \
+            == prompts.shape[1] + new
+        for a, b in zip(decs[0].cache.data, decs[1].cache.data):
+            assert torch.equal(a, b)
+    return decs[0]
+
+
+@pytest.mark.parametrize("sampler", ["greedy", "topk"])
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-1.2b"])
+def test_lockstep_graph_replay_equals_eager_on_card(cuda_device, arch, sampler):
+    """The lock-step decoder on the card captures its step once (after one
+    eager step) and replays it: the tokens, every step's logits and the
+    cache (states, zamba2's shared k/v, the length) equal the eager
+    decoder's bit for bit.  A second batch on the same cache tensors,
+    zeroed in place, replays the same graph; a third on a cache made while
+    the old one is alive is captured again and stays equal."""
+    cfg, params = _smoke(arch, cuda_device)
+    prompts = np.random.default_rng(3).integers(1, cfg.vocab, (4, 3))
+    dec = _generate_both(cfg, params, cuda_device, sampler,
+                         [(prompts, 6, None),
+                          (np.ascontiguousarray(prompts[:, ::-1]), 5, "in_place"),
+                          (prompts[:, :2], 4, "new_alive")])
+    # 9 + 8 steps on the first storage (the first eager), 6 on the new one
+    # (the first eager)
+    assert dec.graph_captures == 2
+    assert dec.graph_replays == 8 + 8 + 5
+
+
+def test_lockstep_moe_decoder_never_captures_on_card(cuda_device):
+    """deepseek-v3 smoke has MoE layers, whose dispatch reads segment sizes
+    on the host: every step runs eagerly, and its streams equal the eager
+    decoder's."""
+    cfg, params = _smoke("deepseek-v3-671b", cuda_device)
+    prompts = np.random.default_rng(4).integers(1, cfg.vocab, (4, 3))
+    dec = _generate_both(cfg, params, cuda_device, "topk", [(prompts, 4, None)])
+    assert dec.graph_captures == dec.graph_replays == 0
+
+
+def test_lockstep_graph_holds_its_position_tables_on_card(cuda_device):
+    """zamba2's shared attention reads the rope tables, which live in a
+    cache of 16 entries.  The captured step holds the tables it reads:
+    with them evicted from that cache and the freed memory of the capture
+    stream filled with other values, a second batch's replays still equal
+    the eager decoder's."""
+    cfg, params = _smoke("zamba2-1.2b", cuda_device)
+    prompts = np.random.default_rng(6).integers(1, cfg.vocab, (4, 3))
+
+    def evict_and_overwrite(decs):
+        for dec in decs:
+            _zero_in_place(dec)
+        for n in range(16):  # other tables push the step's out of the cache
+            tm._rope_tables(cfg.resolved_head_dim, 1000 + n, cfg.rope_theta,
+                            cuda_device)
+        with torch.cuda.stream(decs[0]._stream):  # the tables' stream
+            decs[0].junk = [torch.full((128,), 7.0, device=cuda_device)
+                            for _ in range(8192)]
+
+    dec = _generate_both(cfg, params, cuda_device, "greedy",
+                         [(prompts, 6, None), (prompts, 6, evict_and_overwrite)])
+    assert dec.graph_captures == 1
+    assert dec.graph_replays == 8 + 9
+
+
+def test_lockstep_decoder_with_obs_on_never_captures_on_card(cuda_device):
+    """With obs on, every record point of the step has to fire each step,
+    so the mamba2 decoder on the card runs every step eagerly: no graph is
+    captured or replayed, and its tokens, logits and cache equal the eager
+    decoder's."""
+    cfg, params = _smoke("mamba2-2.7b", cuda_device)
+    prompts = np.random.default_rng(7).integers(1, cfg.vocab, (4, 3))
+    with obs.capture() as records:
+        dec = _generate_both(cfg, params, cuda_device, "topk",
+                             [(prompts, 4, None)])
+    assert dec.graph_captures == dec.graph_replays == 0
+    assert any(r["metric"] == "serve.sampled_tokens" for r in records)

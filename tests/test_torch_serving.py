@@ -35,7 +35,9 @@ from repro_torch import obs
 from repro_torch.configs.registry import ARCHS, smoke_config
 from repro_torch.launch import serve
 from repro_torch.models.convert import params_from_numpy
-from repro_torch.models.transformer import init_params
+from repro_torch.models.transformer import (decode_step, decode_step_capturable,
+                                            decode_step_tables, init_cache,
+                                            init_params)
 from repro_torch.serving import DecodeEngine, KVPool, Request, Scheduler
 from repro_torch.serving.sampling import sample_topk
 
@@ -282,6 +284,55 @@ def test_lockstep_topk_streams_equal_per_row_sampler(lockstep_models, arch,
     rounds = [r for r in recs if r["metric"] == "serve.topk_merge_rounds"]
     assert [r["step"] for r in rounds] == list(range(new))
     assert all(r["labels"]["batch"] == batch for r in rounds)
+
+
+class _EagerDecoder(serve.LockstepDecoder):
+    """The lock-step decoder with every step run by ``decode_step``."""
+
+    def _decode(self, tokens):
+        logits, self.cache = decode_step(self.cfg, self.params, self.cache,
+                                         tokens)
+        return logits
+
+
+@pytest.mark.parametrize("obs_on", [False, True])
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-1.2b"])
+def test_lockstep_decoder_never_captures_on_cpu(arch, obs_on):
+    """Off the card, and with obs on, the lock-step decoder runs every step
+    eagerly: no CUDA graph is captured or replayed, and its greedy and
+    top-k streams and cache equal the eager decoder's."""
+    cfg = smoke_config(ARCHS[arch])
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    prompts = np.random.default_rng(5).integers(1, cfg.vocab, (3, 2))
+    for sampler in ("greedy", "topk"):
+        kw = dict(batch=3, max_len=6, sampler=sampler, top_k=8, seed=9)
+        dec = serve.LockstepDecoder(cfg, params, **kw)
+        if obs_on:
+            with obs.capture():
+                got = dec.generate(prompts, 4)
+        else:
+            got = dec.generate(prompts, 4)
+        eager = _EagerDecoder(cfg, params, **kw)
+        np.testing.assert_array_equal(got, eager.generate(prompts, 4))
+        assert dec.graph_captures == dec.graph_replays == 0
+        assert int(dec.cache.length) == 6
+        for a, b in zip(dec.cache.data, eager.cache.data):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch, capturable", [
+    ("mamba2-2.7b", True), ("zamba2-1.2b", True), ("deepseek-v3-671b", False),
+    ("dbrx-132b", False), ("qwen3-0.6b", False)])
+def test_decode_step_capturable_for_state_caches_without_moe(arch, capturable):
+    """Only an ssm or hybrid cache of a model without MoE layers may have
+    its decode step captured; the position tables a step reads come from
+    their cache, the same objects on every call."""
+    cfg = smoke_config(ARCHS[arch])
+    cache = init_cache(cfg, 2, 5, device="cpu")
+    assert decode_step_capturable(cfg, cache) is capturable
+    first, again = (decode_step_tables(cfg, cache, torch.device("cpu"))
+                    for _ in range(2))
+    assert len(first) in (1, 2) and all(a is b for a, b in zip(first, again))
 
 
 # --- the port's determinism contract ------------------------------------------------
