@@ -20,8 +20,8 @@ for.  The numbers:
 * ``sampler_mismatch``: served tokens that differ from what the plain
   sampler (``reference/sampler.py``) chooses from the program's own logits
   of that position, with the request's key.  It judges the sampler (its
-  top-k set and the draw), and whether the served token is the one the
-  program chose; an exact comparison.
+  top-k set, top-p's nucleus cut and the draw), and whether the served
+  token is the one the program chose; an exact comparison.
 
 A cell's file (``limits``) names the numbers it compares, each with its
 limit.
@@ -123,12 +123,13 @@ def decode_gaps(ref_logits: torch.Tensor, reqs: list) -> dict:
             "decode_gap_mean": float(gaps.double().mean())}
 
 
-def sampler_mismatch(reqs: list, *, sampler: str, seed: int, k: int) -> int:
+def sampler_mismatch(reqs: list, *, sampler: str, seed: int, k: int,
+                     p: float | None = None) -> int:
     bad = 0
     for r in reqs:
         for i, token in enumerate(r.served.tolist()):
             want = ref_sampler.choose(r.logits[i], sampler=sampler, seed=seed,
-                                      row_id=r.row, token_idx=i, k=k)
+                                      row_id=r.row, token_idx=i, k=k, p=p)
             bad += int(want != token)
     return bad
 

@@ -18,6 +18,10 @@ span from its start to the last batch's end, so the rates take all the
 work and all the time of whole batches.  With ``trace`` the window also
 records device stamps around each decode step and sampler call, and one
 more batch, after the window, runs a profiled slice of steady steps.
+Without it, a cell whose end-to-end metrics (``end_to_end`` in its file)
+hold ``device_ms_per_token`` runs each window batch under a profiler of
+the device alone, and the device's busy time over the whole window is
+read from its operations once the window has closed.
 Then the program's state is freed and a sample of the finished requests
 is held against the reference.
 """
@@ -47,6 +51,10 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 PROFILE_FIRST, PROFILE_STEPS = 8, 20
 KEPT_ROWS_PER_BATCH = 8  # rows of each batch whose logits are kept
 CHECKED_REQUESTS = 8  # requests the reference runs over
+# A cell's end-to-end metrics, where its file names none, and their units.
+END_TO_END = ("decode_tok_s", "tpot_p95_ms", "setup_s")
+E2E_UNITS = {"decode_tok_s": "tokens/s", "tpot_p95_ms": "ms", "setup_s": "s",
+             "device_ms_per_token": "ms/token"}
 
 
 def load_json(kind: str, name: str, root: Path = BENCH) -> dict:
@@ -90,6 +98,16 @@ def cell(name: str, root: Path = BENCH) -> dict:
     c["spec"] = config(c["config"], root)
     c["traffic_params"] = load_json("traffic", c["traffic"], root)
     return c
+
+
+def end_to_end(c: dict) -> tuple:
+    """The end-to-end metrics cell ``c`` reports (its file's
+    ``end_to_end``, else :data:`END_TO_END`)."""
+    names = tuple(c.get("end_to_end", END_TO_END))
+    unknown = set(names) - set(E2E_UNITS)
+    if unknown or "setup_s" not in names:
+        raise ValueError(f"{c['name']}: end_to_end {names!r}")
+    return names
 
 
 def readers(root: Path = BENCH) -> dict:
@@ -142,6 +160,9 @@ class View:
     fed_rows: list  # the rows whose request needs that step
     flops_per_token: object  # position -> FLOPs
     slice: trace_mod.Slice | None
+    tokens: int = 0  # tokens the window's requests asked for
+    gaps: list = dataclasses.field(default_factory=list)  # ms between a request's tokens
+    end_to_end: tuple = END_TO_END  # the cell's end-to-end metrics
 
 
 @dataclasses.dataclass
@@ -159,10 +180,13 @@ def _timed_batch(path, prompts, new_tokens, clock, keep_rows=None):
     return served, kept, stamps
 
 
-def _profiler(cuda: bool):
+def _profiler(cuda: bool, host: bool = True):
+    """Host and device activity; ``host=False``: the device's alone (the
+    host's where there is no card)."""
     act = torch.profiler.ProfilerActivity
     return torch.profiler.profile(
-        activities=[act.CPU, *([act.CUDA] if cuda else [])])
+        activities=[*([act.CPU] if host or not cuda else []),
+                    *([act.CUDA] if cuda else [])])
 
 
 def _profiled_batch(path, tr, j, new_tokens, cuda):
@@ -204,13 +228,15 @@ def run(name: str, seed: int, seconds: float, trace: bool, *, device=None,
     cuda = device.type == "cuda"
     clock = Clock(device)
     path_mod = load_module("paths", c["path"], root)
+    e2e = end_to_end(c)
+    device_time = not trace and "device_ms_per_token" in e2e
 
     cfg = fam.port_config(spec)
     weights = fam.make_weights(spec, seed, device)
     p_len, new = tr.prompt_len, tr.new_tokens
     path = path_mod.Path(cfg, weights, clients=tr.clients, max_len=p_len + new,
-                         sampler=tr.sampler, top_k=tr.top_k, seed=seed,
-                         device=device, clock=clock)
+                         sampler=tr.sampler, top_k=tr.top_k, top_p=tr.top_p,
+                         seed=seed, device=device, clock=clock)
 
     # Warm-up: one short batch at the cell's batch size, through every hook
     # the window uses.
@@ -226,8 +252,12 @@ def run(name: str, seed: int, seconds: float, trace: bool, *, device=None,
         torch.cuda.synchronize()
     setup_s = time.perf_counter() - t_start
 
-    # The window: whole batches while the longest so far still fits.
-    batches = []
+    # The window: whole batches while the longest so far still fits; with
+    # ``device_time`` each under its own profiler (one batch's operations
+    # fit the profiler's buffers, a whole window's may not).  The
+    # profiler's first start falls in the window, not in the set-up: it
+    # delays the host and no operation on the device.
+    batches, profs = [], []
     e0 = clock.stamp()
     end_ms, longest = 0.0, 0.0
     j = 0
@@ -235,11 +265,19 @@ def run(name: str, seed: int, seconds: float, trace: bool, *, device=None,
         rng = np.random.default_rng([int(seed) % (1 << 64), j, 3])
         rows = check.halves(tr.clients, KEPT_ROWS_PER_BATCH, rng)
         prompts, asks = tr.prompts(j), tr.asks(j)
+        prof = _profiler(cuda, host=False) if device_time else None
+        if prof is not None:
+            prof.start()
         served, kept, stamps = _timed_batch(path, prompts, new, clock, rows)
         batches.append(dict(rows=rows, prompts=prompts, asks=asks,
                             served=served, kept=kept, stamps=stamps))
         j += 1
         clock.sync(stamps[-1])
+        if prof is not None:
+            if cuda:
+                torch.cuda.synchronize()
+            prof.stop()
+            profs.append(prof)
         last = clock.ms(e0, stamps[-1])
         end_ms, longest = last, max(longest, last - end_ms)
         if end_ms + longest > seconds * 1e3:
@@ -261,6 +299,11 @@ def run(name: str, seed: int, seconds: float, trace: bool, *, device=None,
                                             for i in range(new)]
     steps_per_batch = p_len + new
     span_s = end_ms / 1e3
+
+    # The device's busy time over the window's batches, every operation.
+    busy_ns = sum(trace_mod.device_busy_ns(p.profiler.kineto_results.events())
+                  for p in profs)
+    del profs
 
     decodes = [clock.ms(s, e) for s, e in path.probe.decodes]
     samples = [clock.ms(s, e) for s, e in path.probe.samples]
@@ -297,7 +340,8 @@ def run(name: str, seed: int, seconds: float, trace: bool, *, device=None,
     numbers = {
         **check.decode_gaps(ref_logits, sample),
         "sampler_mismatch": check.sampler_mismatch(
-            sample, sampler=tr.sampler, seed=seed, k=min(tr.top_k, cfg.vocab)),
+            sample, sampler=tr.sampler, seed=seed, k=min(tr.top_k, cfg.vocab),
+            p=tr.top_p),
     }
     correct, table = check.judge(numbers, c["limits"])
     window_info["numbers"] = numbers
@@ -315,7 +359,7 @@ def run(name: str, seed: int, seconds: float, trace: bool, *, device=None,
                            for idx in range(len(decodes))],
             fed_rows=fed_rows,
             flops_per_token=lambda pos: flops.per_token(spec, pos),
-            slice=the_slice)
+            slice=the_slice, tokens=tokens, gaps=gaps, end_to_end=e2e)
         metrics = {}
         for mname, mod in readers(root).items():
             value = mod.read(view)
@@ -325,13 +369,17 @@ def run(name: str, seed: int, seconds: float, trace: bool, *, device=None,
             dev["busy_s"] = the_slice.busy_s
             dev["window_s"] = the_slice.span_s
     else:
-        metrics = {
-            "decode_tok_s": {"value": stats.rate(tokens, span_s),
-                             "unit": "tokens/s"},
-            "tpot_p95_ms": {"value": stats.percentile(gaps, 95) if gaps
-                            else float("nan"), "unit": "ms"},
-            "setup_s": {"value": setup_s, "unit": "s"},
+        values = {
+            "decode_tok_s": lambda: stats.rate(tokens, span_s),
+            "tpot_p95_ms": lambda: (stats.percentile(gaps, 95) if gaps
+                                    else float("nan")),
+            "setup_s": lambda: setup_s,
+            # none where the device ran nothing: no card, no result
+            "device_ms_per_token": lambda: (busy_ns * 1e-6 / tokens
+                                            if busy_ns else None),
         }
+        metrics = {name: {"value": v, "unit": E2E_UNITS[name]}
+                   for name in e2e if (v := values[name]()) is not None}
     result = {"correct": bool(correct), "attempted": attempted,
               "failed": failed, "metrics": metrics, "device": dev}
     if trace and the_slice is not None:

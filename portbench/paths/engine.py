@@ -108,10 +108,12 @@ class Probe:
 
 class Path:
     def __init__(self, cfg, params, *, clients: int, max_len: int,
-                 sampler: str, top_k: int, seed: int, device, clock):
+                 sampler: str, top_k: int, top_p: float | None = None,
+                 seed: int, device, clock):
         self.probe = Probe(clock)
         self.cfg, self.clients, self.max_len = cfg, clients, max_len
         self.sampler, self.top_k, self.seed = sampler, top_k or 50, seed
+        self.top_p = top_p  # the engine reads it for topp only
         self.device = device
         self.params = compute_params(cfg, params)
         self.eng = None
@@ -128,8 +130,8 @@ class Path:
         eng = self.eng = _Engine(
             self.cfg, self.params, max_len=self.max_len,
             max_batch=self.clients, queue_depth=self.clients,
-            sampler=self.sampler, top_k=self.top_k, seed=self.seed,
-            device=self.device)
+            sampler=self.sampler, top_k=self.top_k, top_p=self.top_p,
+            seed=self.seed, device=self.device)
         eng.probe = p
         for r, prompt in enumerate(prompts):
             eng.submit(Request(r, prompt, new_tokens))

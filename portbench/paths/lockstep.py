@@ -54,9 +54,23 @@ class Probe:
         self.keep_rows = None
 
 
+# ``LockstepDecoder._sample``'s own nucleus for ``topp``: p over k
+# candidates, at temperature 1.  The decoder takes neither from its caller.
+TOPP = (0.9, 64)
+
+
 class Path:
+    """The decoder takes ``top_k`` for ``topk``; for ``topp`` it fixes the
+    nucleus itself (``TOPP``), so a traffic mix that asks for another is
+    refused here rather than served at the decoder's and judged against
+    its own."""
+
     def __init__(self, cfg, params, *, clients: int, max_len: int,
-                 sampler: str, top_k: int, seed: int, device, clock):
+                 sampler: str, top_k: int, top_p: float | None = None,
+                 seed: int, device, clock):
+        if sampler == "topp" and (top_p, top_k) != TOPP:
+            raise ValueError(f"the lock-step decoder samples topp at p, k = "
+                             f"{TOPP}, not {(top_p, top_k)}")
         self.probe = Probe(clock)
         self.cfg, self.clients, self.max_len = cfg, clients, max_len
         self.device = device

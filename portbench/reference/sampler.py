@@ -1,4 +1,5 @@
-"""The samplers, plainly: greedy and top-k with the per-request draw.
+"""The samplers, plainly: greedy, and top-k and top-p with the per-request
+draw.
 
 Greedy is the first index of the largest logit.  Top-k takes the ``k``
 largest logits by a stable sort (equal logits to the lower token id), and
@@ -6,9 +7,13 @@ draws one by Gumbel-max: candidate ``j`` (in that order) scores
 ``log(p_j + 1e-20) + G_j``, ``p`` the softmax of the ``k`` logits and
 ``G_j = -log(-log(u_j))`` with ``u_j`` a 32-bit counter hash of the
 request's key and ``j`` mapped into (0, 1); the request's key hashes
-``(seed, row, token index)``.  The hash and the draw are frozen copies of
-the port's definition (``repro_torch.serving.sampling``), so a change of
-that definition shows as a mismatch.
+``(seed, row, token index)``.  Top-p takes the same ``k`` candidates
+and their softmax (temperature 1), keeps a candidate while the sum of the
+probabilities before it is under ``p`` (the first always stays), zeroes
+the rest, and draws by the same Gumbel-max over all ``k``.  The hash and
+the draw are frozen copies of the port's definition
+(``repro_torch.serving.sampling``), so a change of that definition shows
+as a mismatch.
 """
 
 from __future__ import annotations
@@ -59,10 +64,23 @@ def topk(row: torch.Tensor, key: torch.Tensor, k: int) -> int:
     return int(order[_gumbel_choice(key, probs[None])])
 
 
+def topp(row: torch.Tensor, key: torch.Tensor, p: float, k: int) -> int:
+    """The token drawn with ``key`` from the nucleus ``p`` of ``row``'s top
+    ``k``."""
+    order = torch.sort(row, descending=True, stable=True).indices[:k]
+    probs = torch.softmax(row[order].float(), dim=-1)
+    keep = torch.cumsum(probs, dim=-1) - probs < p
+    probs = torch.where(keep, probs, 0.0)
+    return int(order[_gumbel_choice(key, probs[None])])
+
+
 def choose(row: torch.Tensor, *, sampler: str, seed: int, row_id: int,
-           token_idx: int, k: int) -> int:
+           token_idx: int, k: int, p: float | None = None) -> int:
     if sampler == "greedy":
         return greedy(row)
+    key = request_key(seed, row_id, token_idx, row.device)
     if sampler == "topk":
-        return topk(row, request_key(seed, row_id, token_idx, row.device), k)
+        return topk(row, key, k)
+    if sampler == "topp":
+        return topp(row, key, p, k)
     raise ValueError(f"unknown sampler {sampler!r}")

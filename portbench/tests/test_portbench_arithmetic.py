@@ -88,6 +88,14 @@ EVENTS = [
 ]
 
 
+def test_device_busy_over_a_window():
+    """Every kernel, copy and set counts once where they overlap; host
+    events and the device's annotations do not count."""
+    assert trace.device_busy_ns(EVENTS) == 170
+    assert trace.device_busy_ns(EVENTS + [_Ev("kernel", "k", 350, 455)]) == 220
+    assert trace.device_busy_ns(EVENTS[:3]) == 0
+
+
 def test_slice_reduction():
     sl = trace.read(EVENTS, steps=2)
     assert [o.name for o in sl.kernels] == ["merge_kway_groups_kernel<int>", "gemm"]
@@ -123,6 +131,20 @@ def test_readers():
         100 * (32 * 1e9 + 32 * 2e9 + 10 * 2e9) / (10.0 * 989e12))
     least = 2 * 32 * (50280 * 4 + 50 * 8) / 3.35e12
     assert rd["sampler_roofline"].read(v) == pytest.approx(100 * least / 60e-9)
+
+
+def test_host_readers_only_where_the_cell_leaves_them_out():
+    """The host-bound rate and cadence are read per layer only in a cell
+    whose end-to-end metrics do not carry them."""
+    rd = harness.readers()
+    gaps = [float(g) for g in range(1, 101)]
+    device = ("device_ms_per_token", "setup_s")
+    assert rd["host_decode_tok_s"].read(_view(tokens=500, gaps=gaps,
+                                              end_to_end=device)) == 50.0
+    assert rd["host_tpot_p95_ms"].read(_view(tokens=500, gaps=gaps,
+                                             end_to_end=device)) == pytest.approx(95.05)
+    for name in ("host_decode_tok_s", "host_tpot_p95_ms"):
+        assert rd[name].read(_view(tokens=500, gaps=gaps)) is None
 
 
 def test_readers_return_nothing_without_their_source():

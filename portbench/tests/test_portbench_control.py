@@ -16,7 +16,7 @@ from portbench import harness
 from portbench.control import control_gaps, control_judged
 
 CELLS = ["mamba2-chat-topk", "dsv3-chat-topk", "mamba2-chat-greedy",
-         "dsv3-chat-greedy"]
+         "dsv3-chat-greedy", "mamba2-chat-topp"]
 
 
 @pytest.mark.parametrize("cell", ["mamba2-chat-topk", "dsv3-chat-greedy"])

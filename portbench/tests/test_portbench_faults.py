@@ -3,8 +3,9 @@
 Each test drives the harness as ``run.py`` does (weights, warm-up, the
 window, the check), on the CPU at the family's test width, with one fault
 planted in the program: a decode step that returns its state unchanged,
-half of the batch left out (those rows fed the other half's tokens), or a
-served token altered where the sampler produces it.  A cell on one chip
+half of the batch left out (those rows fed the other half's tokens), a
+served token altered where the sampler produces it, or (top-p) the
+nucleus's ``p`` ignored, every one of the ``k`` candidates kept.  A cell on one chip
 has no exchange between chips to leave out.  The traffic is the cell's
 own (its clients, its spread of lengths) with shorter prompts and a lower
 cap on new tokens, and the harness keeps and checks the rows and requests
@@ -20,7 +21,9 @@ from repro_torch.launch import serve
 from repro_torch.models.transformer import Cache
 
 CELLS = ["mamba2-chat-topk", "dsv3-chat-topk", "mamba2-chat-greedy",
-         "dsv3-chat-greedy"]
+         "dsv3-chat-greedy", "mamba2-chat-topp"]
+SAMPLER = {"topk": "sample_topk", "greedy": "sample_greedy",
+           "topp": "sample_topp"}
 
 
 def _traffic(cell):
@@ -59,6 +62,36 @@ def _altered(real):
     return sample
 
 
+def _p_ignored(real):
+    def sample(keys, logits, p=0.9, **kwargs):
+        return real(keys, logits, p=1.0, **kwargs)
+    return sample
+
+
+def test_device_time_cell_reports_its_end_to_end(monkeypatch):
+    """A cell whose end-to-end metric is the device's time a token runs
+    each window batch under its own profiler and reports that metric and
+    ``setup_s`` alone; its traced run reads the host's rate per layer."""
+    busy = []
+
+    def one_ms(events):
+        busy.append(1)
+        return 1_000_000
+
+    monkeypatch.setattr(harness.trace_mod, "device_busy_ns", one_ms)
+    out = _run("dsv3-chat-greedy")
+    assert out.result["correct"], out.result["checks"]
+    assert set(out.result["metrics"]) == {"device_ms_per_token", "setup_s"}
+    per_batch = sum(harness.Traffic(_traffic("dsv3-chat-greedy"), 1, 10).lengths)
+    assert len(busy) == out.window["batches"]
+    assert out.result["metrics"]["device_ms_per_token"]["value"] == (
+        pytest.approx(1.0 / per_batch))
+    traced = harness.run("dsv3-chat-greedy", 2**31 + 99, 0.05, True,
+                         device="cpu", smoke=True,
+                         traffic=_traffic("dsv3-chat-greedy"))
+    assert {"host_decode_tok_s", "host_tpot_p95_ms"} <= set(traced.result["metrics"])
+
+
 @pytest.mark.parametrize("cell", CELLS)
 def test_sound_run_is_correct(cell):
     out = _run(cell)
@@ -74,7 +107,14 @@ def test_fault_reads_incorrect(cell, fault, monkeypatch):
     elif fault == "half_batch":
         monkeypatch.setattr(serve, "decode_step", _half_batch(serve.decode_step))
     else:
-        name = "sample_topk" if cell.endswith("topk") else "sample_greedy"
+        name = SAMPLER[cell.rsplit("-", 1)[1]]
         monkeypatch.setattr(serve, name, _altered(getattr(serve, name)))
     out = _run(cell)
     assert not out.result["correct"], out.result["checks"]
+
+
+def test_topp_with_p_ignored_reads_incorrect(monkeypatch):
+    monkeypatch.setattr(serve, "sample_topp", _p_ignored(serve.sample_topp))
+    out = _run("mamba2-chat-topp")
+    assert not out.result["correct"], out.result["checks"]
+    assert out.result["checks"]["sampler_mismatch"]["value"] > 0

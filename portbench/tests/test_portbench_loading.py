@@ -8,6 +8,7 @@ import shutil
 
 import numpy as np
 import pytest
+import torch
 
 from portbench import harness
 from portbench.traffic import Traffic, length_set
@@ -98,6 +99,18 @@ def test_traffic_file(name):
     assert a.prompts(0).shape == (t["clients"], t["prompt_len"])
 
 
+@pytest.mark.parametrize("top_p", [0.0, -0.1, 1.5, float("nan"), None])
+def test_bad_top_p_refused(top_p):
+    t = harness.load_json("traffic", "chat256-topp")
+    assert (t["sampler"], t["top_p"], t["top_k"]) == ("topp", 0.9, 64)
+    assert Traffic(t, 3, 1000).top_p == 0.9
+    bad = dict(t, top_p=top_p)
+    if top_p is None:
+        del bad["top_p"]
+    with pytest.raises(ValueError, match="top_p"):
+        Traffic(bad, 3, 1000)
+
+
 def test_length_set():
     spec = {"lognormal": {"median": 100, "sigma": 1.0}, "scale": 0.5, "max": 80}
     got = length_set(spec, 4)
@@ -107,6 +120,22 @@ def test_length_set():
              0.31863936396437514, 1.1503493803760079)]
     assert got.tolist() == want == [16, 36, 69, 80]
     assert length_set(7, 3).tolist() == [7, 7, 7]
+
+
+@pytest.mark.parametrize("w", SPEC["workloads"], ids=lambda w: w["name"])
+def test_cell_end_to_end_agrees(w):
+    """The end-to-end metrics a cell's file names are those that
+    ``BENCHMARK.json`` gives it, and every per-layer metric listed for it
+    moves one of them."""
+    names = harness.end_to_end(harness.cell(w["name"]))
+    assert set(names) == {e["name"] for e in SPEC["end_to_end"]
+                          if w["name"] in e.get("workloads", [w["name"]])}
+    assert set(names) <= set(harness.E2E_UNITS)
+    for e in SPEC["end_to_end"]:
+        assert e["unit"] == harness.E2E_UNITS[e["name"]]
+    for m in SPEC["per_layer"]:
+        if w["name"] in m["workloads"]:
+            assert m["moves"] in names, m["name"]
 
 
 def test_metric_readers_match_benchmark():
@@ -143,3 +172,14 @@ def test_bad_names_refused():
     for bad in ("../x", "a b", "a/b", ""):
         with pytest.raises(ValueError):
             harness.load_json("workloads", bad)
+
+
+@pytest.mark.parametrize("top_p, top_k", [(0.95, 64), (0.9, 50), (None, 64)])
+def test_lockstep_path_refuses_another_nucleus(top_p, top_k):
+    """The lock-step decoder fixes its top-p nucleus; a mix that asks for
+    another is refused before anything is built."""
+    lockstep = harness.load_module("paths", "lockstep")
+    with pytest.raises(ValueError, match="topp"):
+        lockstep.Path(None, None, clients=2, max_len=4, sampler="topp",
+                      top_k=top_k, top_p=top_p, seed=1,
+                      device=torch.device("cpu"), clock=None)

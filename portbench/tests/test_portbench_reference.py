@@ -18,6 +18,8 @@ from repro_torch.serving.sampling import (
     request_keys,
     sample_greedy,
     sample_topk,
+    sample_topp,
+    sample_topp_batched,
 )
 
 TOL = 0.05  # in standard deviations of the reference's logits
@@ -72,6 +74,44 @@ def test_samplers_choose_the_ports_token():
                                       row_id=r, token_idx=i, k=50) == int(got[r])
             assert ref_sampler.choose(logits[r], sampler="greedy", seed=seed,
                                       row_id=r, token_idx=i, k=50) == int(greedy[r])
+
+
+@pytest.mark.parametrize("port", [sample_topp, sample_topp_batched],
+                         ids=["per_row", "batched"])
+@pytest.mark.parametrize("p", [0.9, 0.3, 1.0])
+def test_topp_chooses_the_ports_token(port, p):
+    """The plain top-p draws the token the port's nucleus sampler serves
+    (the lock-step decoder's per-row form, and the batched form), on rows
+    with many ties: all tied, a tie at the top, ties across the nucleus's
+    edge, and peaked rows whose nucleus is one or two candidates."""
+    gen = torch.Generator().manual_seed(9)
+    logits = torch.randn((8, 300), generator=gen).to(torch.bfloat16).float()
+    logits[2, :] = 0.25
+    logits[3, 7] = logits[3, 9] = logits[3].max() + 1
+    logits[4] = torch.randint(0, 4, (300,), generator=gen).float()
+    logits[5, 11] = logits[5].max() + 8
+    logits[6] = (logits[6] * 4).round()
+    seed = 2**31 + 41
+    rows = torch.arange(8)
+    for i in range(4):
+        keys = request_keys(seed, rows, torch.full_like(rows, i))
+        got = port(keys, logits, p=p, k=64)
+        for r in range(8):
+            assert ref_sampler.choose(logits[r], sampler="topp", seed=seed,
+                                      row_id=r, token_idx=i, k=64,
+                                      p=p) == int(got[r]), (r, i)
+
+
+def test_topp_differs_from_topk_over_the_same_candidates():
+    """The nucleus cut matters: on flat rows the plain top-p and the top-k
+    of the same candidates draw different tokens somewhere."""
+    logits = torch.randn((32, 300), generator=torch.Generator().manual_seed(2))
+    seed, differ = 5, 0
+    for r in range(32):
+        key = ref_sampler.request_key(seed, r, 0, "cpu")
+        differ += ref_sampler.topp(logits[r], key, 0.5, 64) != ref_sampler.topk(
+            logits[r], key, 64)
+    assert differ > 0
 
 
 def _leaves(tree, prefix=""):

@@ -10,6 +10,12 @@ one's end; its busy time is the union of the operations' intervals.  An
 idle gap is named by what the host was doing when it launched the
 operation that ends the gap: the harness span and the outermost operator
 around the launch.
+
+Every other annotation on the host (the program's own spans, such as
+``moe.dispatch`` or ``serve.decode``, and its step markers) is kept apart,
+as named host intervals (``Slice.program_spans``), for readers of a
+model layer's host time, or of the device time of the operations launched
+inside (``Slice.launched_in``); it names no operation and no gap.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ class Op:
     end: int
     span: str  # the harness span its launch fell in ("" outside any)
     launched_by: str  # outermost host operator around the launch
+    launch: int | None = None  # ns on the host of its launch, where known
 
 
 @dataclasses.dataclass
@@ -43,6 +50,8 @@ class Slice:
     span_s: float
     busy_s: float
     idle_gaps: list  # [(name, seconds)], largest first
+    # the program's annotations: name -> [(start, end)] ns on the host
+    program_spans: dict = dataclasses.field(default_factory=dict)
 
     @property
     def kernels(self) -> list:
@@ -50,6 +59,22 @@ class Slice:
 
     def in_span(self, span: str) -> list:
         return [o for o in self.ops if o.span == span]
+
+    def program_s(self, name: str) -> float | None:
+        """Seconds of the host inside the program's spans ``name`` (the
+        union: a span nested in one of the same name counts once);
+        ``None`` where the slice has none."""
+        spans = self.program_spans.get(name)
+        return None if not spans else union_length(spans) * 1e-9
+
+    def launched_in(self, name: str) -> list | None:
+        """The operations launched while one of the program's spans
+        ``name`` was open on the host; ``None`` where the slice has none."""
+        spans = self.program_spans.get(name)
+        if not spans:
+            return None
+        inside = _Intervals([(s, e, name) for s, e in spans])
+        return [o for o in self.ops if o.launch is not None and inside.at(o.launch)]
 
     def device_ops(self, top: int = 10) -> list:
         total = defaultdict(float)
@@ -102,18 +127,31 @@ def _kind(e) -> str:
     return "cpu_op"
 
 
+def device_busy_ns(events) -> int:
+    """Nanoseconds in which an operation ran on the device: the union of
+    the intervals of the kernels, copies and sets among kineto
+    ``events``."""
+    return int(union_length([(e.start_ns(), e.end_ns()) for e in events
+                             if _kind(e) in DEVICE_KINDS]))
+
+
 def read(events, steps: int) -> Slice | None:
     """Reduce kineto events (``prof.profiler.kineto_results.events()``) of
     ``steps`` profiled steps; ``None`` when the device ran nothing."""
     launches, spans, cpu_ops, device = {}, [], [], []
+    program = defaultdict(list)
     for e in events:
         kind = _kind(e)
         if kind in DEVICE_KINDS:
             device.append((kind, e))
         elif kind in LAUNCH_KINDS:
             launches[e.correlation_id()] = e.start_ns()
-        elif kind == "user_annotation" and e.name().startswith(SPAN_PREFIX):
-            spans.append((e.start_ns(), e.end_ns(), e.name()[len(SPAN_PREFIX):]))
+        elif kind == "user_annotation":
+            name, t = e.name(), (e.start_ns(), e.end_ns())
+            if name.startswith(SPAN_PREFIX):
+                spans.append((*t, name[len(SPAN_PREFIX):]))
+            else:
+                program[name].append(t)
         elif kind == "cpu_op":
             cpu_ops.append((e.start_ns(), e.end_ns(), e.name()))
     if not device:
@@ -126,7 +164,7 @@ def read(events, steps: int) -> Slice | None:
             t = launches.get(e.linked_correlation_id())
         ops.append(Op(e.name(), kind, e.start_ns(), e.end_ns(),
                       span_at.at(t) if t is not None else "",
-                      op_at.at(t) if t is not None else ""))
+                      op_at.at(t) if t is not None else "", t))
     ops.sort(key=lambda o: o.start)
     first, last = ops[0].start, max(o.end for o in ops)
     busy = union_length([(o.start, o.end) for o in ops])
@@ -139,4 +177,5 @@ def read(events, steps: int) -> Slice | None:
         reach = max(reach, o.end)
     idle = sorted(gaps.items(), key=lambda kv: -kv[1])[:10]
     return Slice(steps=steps, ops=ops, span_s=(last - first) * 1e-9,
-                 busy_s=busy * 1e-9, idle_gaps=idle)
+                 busy_s=busy * 1e-9, idle_gaps=idle,
+                 program_spans=dict(program))

@@ -7,8 +7,9 @@ lock-step path the clients form one batch and the next batch starts when
 the last one ends), ``prompt_len`` (one length for every prompt: the
 lock-step path takes a batch of equal prompts), ``new_tokens``,
 ``prompt_tokens`` (``uniform``: ids drawn uniformly from 1 to the
-configuration's prompt vocabulary), ``sampler`` (``greedy`` or ``topk``)
-and, for ``topk``, ``top_k``.
+configuration's prompt vocabulary), ``sampler`` (``greedy``, ``topk`` or
+``topp``), for ``topk`` and ``topp`` ``top_k`` (the candidates), and for
+``topp`` ``top_p`` (the nucleus: in (0, 1]).
 
 ``new_tokens`` is either one count for every request, or a length
 distribution ``{"lognormal": {"median": m, "sigma": s}, "scale": f,
@@ -32,7 +33,7 @@ from statistics import NormalDist
 import numpy as np
 
 LOOPS = ("closed",)
-SAMPLERS = ("greedy", "topk")
+SAMPLERS = ("greedy", "topk", "topp")
 
 
 def length_set(spec, clients: int) -> np.ndarray:
@@ -59,6 +60,12 @@ class Traffic:
         self.new_tokens = int(self.lengths.max())  # steps a batch runs
         self.sampler = params["sampler"]
         self.top_k = int(params.get("top_k", 0))
+        self.top_p = None
+        if self.sampler == "topp":
+            self.top_p = float(params.get("top_p", math.nan))  # absent: refused
+            if not 0.0 < self.top_p <= 1.0 or self.top_k < 1:
+                raise ValueError(f"topp needs 0 < top_p <= 1 and top_k >= 1, "
+                                 f"got {self.top_p!r}, {self.top_k!r}")
         self.seed = int(seed) % (1 << 64)
         self.prompt_vocab = prompt_vocab
 
